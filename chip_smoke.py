@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and hold its kernels
+against their plain PyTorch versions.
+
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc
+
+Phases, each of which ends the script with a non-zero exit if it fails:
+
+1. print the card's name and power limit; build the kernels of
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all together);
+2. main path: ``LuminSys(backend='kernel')`` renders 12 frames (two S^2
+   sharing windows) of a 1,000,000-Gaussian ``structured_scene`` at
+   1920x1080 under the ``lumina_3dgs`` config, with every kernel's launch
+   count set to 0 just before and read just after;
+3. reference: the same 12 frames through ``backend='reference'`` (plain
+   rasterizer and cache): per-frame hit counts and cache state must be
+   identical and images within 128 ulps x magnitude; PSNR of Lumina, S^2
+   alone and RC alone against ``render_frame_baseline`` (exact 3DGS);
+4. where the time goes: CUDA-event times of each stage of a shade frame and
+   of a sort frame, replayed from the main path's saved states;
+5. kernels: the inputs of each kernel are captured from one more real frame
+   of the main path, and each kernel is held against its plain version on
+   them (integer outputs exactly, floats within 128 ulps x magnitude) and
+   timed with CUDA events beside it;
+6. print the ``{"kernels": [...]}`` line, then the last line
+   ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+HERE = pathlib.Path(__file__).resolve().parent
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
+# rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+ULPS = 128
+# float operations per examined pixel-Gaussian pair (dx, dy, quadratic form,
+# power, exp counted as one, opacity product, clamp) and per contribution
+# (weight, three color multiply-adds, transmittance update)
+OPS_EXAMINED, OPS_CONTRIB = 14, 9
+FEATURE_BYTES = 40      # mean2d 8 + conic 12 + color 12 + opacity 4 + id 4
+# Lumina's images against exact 3DGS on this scene sit near 21 dB (S^2 and
+# RC together); an image of wrong content scores under 10 dB
+PSNR_FLOOR_DB = 15.0
+# the main path's shapes: the lumina_3dgs workload at full width and depth
+GAUSSIANS, WIDTH, HEIGHT, FRAMES, SEED = 1_000_000, 1920, 1080, 12, 0
+
+
+def fail(msg: str) -> None:
+    print(f'chip_smoke: FAILED: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def ulp_close(got, want, ulps: int = ULPS) -> bool:
+    import torch
+    scale = torch.clamp(torch.maximum(got.abs(), want.abs()), min=1.0)
+    eps = torch.finfo(torch.float32).eps
+    return bool(((got - want).abs() <= ulps * eps * scale).all())
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def patched(targets, wrap):
+    """Replace each ``(owner, attr, label)`` function by ``wrap(label, fn)``
+    for the duration (the package looks these names up at call time)."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    try:
+        for (owner, attr, label), (_, _, fn) in zip(targets, saved):
+            setattr(owner, attr, wrap(label, fn))
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def capture_inputs(pkg, run_frame) -> dict:
+    """The arguments of each kernel wrapper's last call during one frame."""
+    calls = {}
+
+    def wrap(label, fn):
+        def recorder(*args, **kwargs):
+            calls[label] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return recorder
+
+    with patched([(pkg.rk, 'rasterize', 'rasterize'),
+                  (pkg.rk, 'rasterize_compact', 'rasterize_compact'),
+                  (pkg.ops, '_rc_lookup_kernel', 'rc_lookup')], wrap):
+        run_frame()
+    return calls
+
+
+def stage_times(pkg, run_frame, reps: int) -> dict:
+    """Median CUDA-event ms of each stage of a frame over ``reps`` runs."""
+    import torch
+    events = collections.defaultdict(list)
+
+    def wrap(label, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[label].append((start, end))
+            return out
+        return timed
+
+    targets = [(pkg.lp, 'render_step', 'frame'),
+               (pkg.lp, 'sort_phase', 'sort (predict, project, sort)'),
+               (pkg.lp, '_prep_features', 'prep (reproject, gather)'),
+               (pkg.ops, 'trim_features', 'trim'),
+               (pkg.ops, 'rasterize_prefix', 'phase A (rasterize kernel)'),
+               (pkg.ops, 'rc_probe', 'probe (rc_lookup kernel + touch)'),
+               (pkg.ops, 'rasterize_resume_compacted',
+                'phase B (compaction + rasterize_compact kernel)'),
+               (pkg.ops.rc, 'insert_all_groups', 'insert')]
+    with patched(targets, wrap):
+        for _ in range(reps):
+            run_frame()
+    torch.cuda.synchronize()
+    per_run = {label: [s.elapsed_time(e) for s, e in pairs]
+               for label, pairs in events.items()}
+    out = {label: statistics.median(v) for label, v in per_run.items()}
+    out['other (pad, regroup, assemble, stats)'] = out['frame'] - sum(
+        v for k, v in out.items() if k != 'frame')
+    return out
+
+
+def raster_bound(st, chunk: int, n_feature_chunks: int, lanes: int,
+                 lane_inputs: int) -> tuple:
+    """(bound_ms, bound_by) for a rasterize launch: the feature bytes of the
+    chunks its data needs, plus ``lanes`` lanes that need work, each reading
+    ``lane_inputs`` 4-byte words and writing its state once (acc 3, trans,
+    record k, count, n_sig, n_iter, iter_at_k), against the operations of
+    the examined and contributing pixel-Gaussian pairs."""
+    k = st.record.shape[-1]
+    state_bytes = lanes * 4 * (lane_inputs + (3 + 1 + k + 4))
+    nbytes = n_feature_chunks * chunk * FEATURE_BYTES + state_bytes
+    ops = (OPS_EXAMINED * int(st.n_iter.sum())
+           + OPS_CONTRIB * int(st.n_sig.sum()))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def check_raster(name: str, got, want) -> float:
+    for field in ('record', 'rec_cnt', 'n_sig', 'n_iter', 'iter_at_k', 'chunks'):
+        if not bool((getattr(got, field) == getattr(want, field)).all()):
+            fail(f'{name}: {field} differs from the plain version')
+    for field in ('acc', 'trans'):
+        if not ulp_close(getattr(got, field), getattr(want, field)):
+            fail(f'{name}: {field} differs by more than {ULPS} ulps')
+    return max(float((got.acc - want.acc).abs().max()),
+               float((got.trans - want.trans).abs().max()))
+
+
+def kernel_phase(calls, pkg, launches, chunk: int) -> list:
+    import torch
+    rk, rcl = pkg.rk, pkg.rcl
+    rows = []
+
+    # -- rasterize, prefix mode (phase A), as the main path calls it
+    args, kw = calls['rasterize']
+    got = rk.rasterize(*args, **kw)
+    want = rk.rasterize_plain(*args, **kw)
+    err = check_raster('rasterize', got, want)
+    # the same inputs in full mode (stop_at_k=False) hold the other branch
+    full_kw = dict(kw, stop_at_k=False)
+    err_full = check_raster('rasterize[full]', rk.rasterize(*args, **full_kw),
+                            rk.rasterize_plain(*args, **full_kw))
+    ms = time_ms(lambda: rk.rasterize(*args, **kw), 20)
+    plain_ms = time_ms(lambda: rk.rasterize_plain(*args, **kw), 3)
+    # every pixel's state is an output; the initial state of phase A is a
+    # constant (zeros, ones, -1, all live) that a kernel need not read
+    bound_ms, bound_by = raster_bound(got, chunk, int(got.chunks.sum()),
+                                      got.trans.numel(), 0)
+    rows.append(dict(name='rasterize', route='cuda',
+                     source='src/repro_torch/kernels/csrc/rasterize.cu',
+                     replaces='src/repro/kernels/rasterize.py:185',
+                     launches=launches['rasterize'],
+                     max_abs_err=max(err, err_full), ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    print(f'kernel rasterize: exact ints, max_abs_err {err} (full mode '
+          f'{err_full}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by}); {int(got.chunks.sum())} chunks '
+          f'over {got.chunks.numel()} tiles', flush=True)
+
+    # -- rasterize_compact (phase B over miss-compacted lanes)
+    args, kw = calls['rasterize_compact']
+    got = rk.rasterize_compact(*args, **kw)
+    want = rk.rasterize_compact_plain(*args, **kw)
+    err = check_raster('rasterize_compact', got, want)
+    ms = time_ms(lambda: rk.rasterize_compact(*args, **kw), 20)
+    plain_ms = time_ms(lambda: rk.rasterize_compact_plain(*args, **kw), 3)
+    # feature chunks the live lanes need: distinct (source tile, chunk) pairs
+    ids, src, ncap, start, live = args[4], args[7], args[8], args[13], args[14]
+    nc_total = ids.shape[1] // chunk
+    c_lo = torch.where(live != 0, start, ids.shape[1]).amin(1, keepdim=True) // chunk
+    c_hi = c_lo + got.chunks
+    need = torch.zeros((ids.shape[0], nc_total), dtype=torch.bool, device=ids.device)
+    for c in range(nc_total):
+        lanes = (live != 0) & (c >= c_lo) & (c < c_hi) & (c < ncap) & (c >= start // chunk)
+        need[src[lanes].long(), c] = True
+    # only live lanes need work: a dead lane's output is its input state.
+    # A live lane reads acc 3, trans, record k, count, start, live, px, py,
+    # src and ncap.
+    k = got.record.shape[-1]
+    bound_ms, bound_by = raster_bound(got, chunk, int(need.sum()),
+                                      int((live != 0).sum()), 11 + k)
+    rows.append(dict(name='rasterize_compact', route='cuda',
+                     source='src/repro_torch/kernels/csrc/rasterize.cu',
+                     replaces='src/repro/kernels/rasterize.py:355',
+                     launches=launches['rasterize_compact'], max_abs_err=err,
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None))
+    print(f'kernel rasterize_compact: exact ints, max_abs_err {err}; '
+          f'{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
+          f'({bound_by}); {int((live != 0).sum())} live lanes, '
+          f'{int(got.chunks.sum())} chunks', flush=True)
+
+    # -- rc_lookup (the LuminCache probe)
+    args, _ = calls['rc_lookup']
+    tags, values, ids_g, cfg = args
+    got = rcl.rc_lookup(*args)
+    want = rcl.rc_lookup_plain(*args)
+    for i, field in enumerate(('hit', 'value', 'set_idx', 'way')):
+        if not bool((got[i] == want[i]).all()):
+            fail(f'rc_lookup: {field} differs from the plain version')
+    err = float((got[1] - want[1]).abs().max())
+    ms = time_ms(lambda: rcl.rc_lookup(*args), 20)
+    plain_ms = time_ms(lambda: rcl.rc_lookup_plain(*args), 5)
+    g, s, w, k = tags.shape
+    sets = torch.unique(got[2].long() + s * torch.arange(g, device=tags.device)[:, None])
+    nbytes = (ids_g.numel() * 4 + sets.numel() * w * (k + 3) * 4
+              + got[0].numel() * (1 + 12 + 4 + 4))
+    rows.append(dict(name='rc_lookup', route='cuda',
+                     source='src/repro_torch/kernels/csrc/rc_lookup.cu',
+                     replaces='src/repro/kernels/rc_lookup.py:49',
+                     launches=launches['rc_lookup'], max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                     bound_by='bytes', library_ms=None))
+    print(f'kernel rc_lookup: exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms, '
+          f'bound {rows[-1]["bound_ms"]:.4f} ms (bytes); '
+          f'{int(got[0].sum())}/{got[0].numel()} hits, {sets.numel()} sets probed',
+          flush=True)
+    return rows
+
+
+def lumina_config(pkg, **overrides):
+    c = pkg.CONFIG
+    return pkg.lp.LuminaConfig(
+        window=c.window, margin=c.margin, capacity=c.capacity,
+        k_record=c.k_record, group_tiles=c.group_tiles,
+        sort_method=c.sort_method, **overrides)
+
+
+def main_path(pkg) -> tuple:
+    """12 frames through ``LuminSys(backend='kernel')``.  Returns the scene,
+    config, cameras, the state before each frame, the per-frame records
+    (hits, image, cache tags/age/clock) and the launch counts."""
+    import torch
+    cfg = lumina_config(pkg, backend='kernel')
+    t0 = time.perf_counter()
+    scene = pkg.structured_scene(SEED, GAUSSIANS, device='cuda')
+    cams = pkg.orbit_trajectory(FRAMES, width=WIDTH, height_px=HEIGHT,
+                                device='cuda')
+    torch.cuda.synchronize()
+    print(f'scene: {GAUSSIANS} Gaussians, {FRAMES} frames at '
+          f'{WIDTH}x{HEIGHT}, made in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+
+    sys_ = pkg.lp.LuminSys(scene, cfg, cams[0], device='cuda')
+    states, records, frame_ms = [], [], []
+    pkg.kernels.reset_launches()
+    for i, cam in enumerate(cams):
+        states.append(sys_.state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        image, st = sys_.step(cam)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        sorted_ = bool(float(st.sorted_this_frame))
+        frame_ms.append((sorted_, ms))
+        print(f'frame {i:2d} {"sort+shade" if sorted_ else "shade":10s} '
+              f'{ms:9.3f} ms  hit_rate {float(st.hit_rate):.4f}  saved_frac '
+              f'{float(st.saved_frac):.4f}  mean_iterated '
+              f'{float(st.mean_iterated):.2f}', flush=True)
+        if tuple(image.shape) != (HEIGHT, WIDTH, 3):
+            fail(f'frame {i}: image shape {tuple(image.shape)}')
+        if not bool(torch.isfinite(image).all()):
+            fail(f'frame {i}: non-finite image')
+        c = sys_.cache
+        records.append((round(float(st.hit_rate) * WIDTH * HEIGHT),
+                        image, c.tags.clone(), c.age.clone(), c.clock.clone()))
+    launches = dict(pkg.kernels.LAUNCHES)
+    print(f'launches in the main path: {json.dumps(launches)}', flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f'kernel {name} was not launched by the main path')
+    shade = [ms for s, ms in frame_ms[1:] if not s]
+    sort = [ms for s, ms in frame_ms[1:] if s]
+    print(f'frame time (frame 0 excluded: first use): shade frames median '
+          f'{statistics.median(shade):.3f} ms, max {max(shade):.3f} ms over '
+          f'{len(shade)}; sort frames {", ".join(f"{m:.3f}" for m in sort)} ms',
+          flush=True)
+    return scene, cfg, cams, states, records, launches
+
+
+def reference_check(pkg, scene, cams, records) -> None:
+    """The same frames through the plain reference backend: identical
+    decisions and ulp-close images."""
+    import torch
+    sys_ = pkg.lp.LuminSys(scene, lumina_config(pkg, backend='reference'),
+                           cams[0], device='cuda')
+    worst_abs, worst_ulps = 0.0, 0.0
+    eps = torch.finfo(torch.float32).eps
+    for i, cam in enumerate(cams):
+        image, st = sys_.step(cam)
+        c = sys_.cache
+        hits = round(float(st.hit_rate) * WIDTH * HEIGHT)
+        want = records[i]
+        same = hits == want[0] and all(
+            bool((x == y).all()) for x, y in zip((c.tags, c.age, c.clock), want[2:]))
+        if not same:
+            fail(f'frame {i}: kernel and reference backends made different '
+                 f'cache decisions (hits {want[0]} vs {hits})')
+        if not ulp_close(want[1], image):
+            fail(f'frame {i}: kernel and reference images differ by more '
+                 f'than {ULPS} ulps')
+        diff = (want[1] - image).abs()
+        scale = torch.clamp(torch.maximum(want[1].abs(), image.abs()), min=1.0)
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_ulps = max(worst_ulps, float((diff / (eps * scale)).max()))
+    print(f'reference backend: identical hits and cache state on all '
+          f'{len(cams)} frames; images within {ULPS} ulps (largest difference '
+          f'{worst_abs!r}, {worst_ulps!r} ulps x magnitude)', flush=True)
+
+
+def quality(pkg, scene, cams, records) -> None:
+    """PSNR against exact 3DGS of Lumina, S^2 alone and RC alone."""
+    frames = sorted({pkg.CONFIG.window - 1, len(cams) - 1})
+    exact = {i: pkg.lp.render_frame_baseline(
+        scene, cams[i], lumina_config(pkg), device='cuda')[0] for i in frames}
+    variants = {'S2+RC (main path)': {i: records[i][1] for i in frames}}
+    for name, opts in (('S2 only', dict(use_rc=False)),
+                       ('RC only', dict(use_s2=False))):
+        sys_ = pkg.lp.LuminSys(scene, lumina_config(pkg, backend='kernel', **opts),
+                               cams[0], device='cuda')
+        variants[name] = {}
+        for i, cam in enumerate(cams):
+            image, _ = sys_.step(cam)
+            if i in frames:
+                variants[name][i] = image
+    for name, images in variants.items():
+        dbs = {i: float(pkg.psnr(images[i], exact[i])) for i in frames}
+        print(f'PSNR vs render_frame_baseline, {name}: ' + ', '.join(
+            f'frame {i} {db:.2f} dB' for i, db in dbs.items()), flush=True)
+        if name.startswith('S2+RC') and not min(dbs.values()) > PSNR_FLOOR_DB:
+            fail(f'PSNR {min(dbs.values()):.2f} dB against the baseline')
+
+
+def main() -> int:
+    if not (HERE / 'src' / 'repro_torch').is_dir():
+        print('chip_smoke: src/repro_torch not found beside this script',
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE / 'src'))
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import repro_torch.configs.lumina_3dgs as arch
+    import repro_torch.core.metrics as metrics
+    import repro_torch.core.pipeline as lp
+    import repro_torch.data.scenes as scenes
+    import repro_torch.data.trajectory as trajectory
+    import repro_torch.kernels as kernels
+    import repro_torch.kernels.build as build
+    import repro_torch.kernels.ops as ops
+    import repro_torch.kernels.rasterize as rk
+    import repro_torch.kernels.rc_lookup as rcl
+    pkg = types.SimpleNamespace(
+        kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
+        rk=rk, rcl=rcl, structured_scene=scenes.structured_scene,
+        orbit_trajectory=trajectory.orbit_trajectory)
+
+    print(f'card: {card_line()}', flush=True)
+    print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+          f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}',
+          flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f'kernels built in {time.perf_counter() - t0:.2f} s '
+          f'({json.dumps({k: round(v, 2) for k, v in build.BUILD_SECONDS.items()})})',
+          flush=True)
+    for name in build.NAMES:
+        for line in build.build_log(name).splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'  ptxas {name}: {line.strip()}', flush=True)
+
+    scene, cfg, cams, states, records, launches = main_path(pkg)
+    reference_check(pkg, scene, cams, records)
+    quality(pkg, scene, cams, records)
+
+    last = len(cams) - 1
+    sort_frame = cfg.window if len(cams) > cfg.window else 0
+    for label, i, reps in (('shade', last, 5), ('sort+shade', sort_frame, 3)):
+        t = stage_times(pkg, lambda: lp.render_step(scene, states[i], cams[i], cfg),
+                        reps)
+        print(f'stages of {label} frame {i} (median of {reps}, CUDA events, ms): '
+              + json.dumps({k: round(v, 4) for k, v in t.items()}), flush=True)
+
+    calls = capture_inputs(pkg, lambda: lp.render_step(scene, states[last],
+                                                       cams[last], cfg))
+    rows = kernel_phase(calls, pkg, launches, cfg.shade_chunk)
+    print(json.dumps({'kernels': rows}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

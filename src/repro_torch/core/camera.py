@@ -1,0 +1,114 @@
+"""Pinhole camera model and pose utilities."""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """A camera pose + intrinsics.
+
+    position : [3]   camera center in world coordinates
+    quat     : [4]   world-from-camera rotation quaternion (w,x,y,z)
+    fx, fy   : focal lengths (pixels), 0-d float32 tensors
+    cx, cy   : principal point (pixels), 0-d float32 tensors
+    width, height : Python ints (image size in pixels)
+    near, far     : clip planes
+    """
+
+    position: torch.Tensor
+    quat: torch.Tensor
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    width: int
+    height: int
+    near: float = 0.05
+    far: float = 100.0
+
+    def replace(self, **kw) -> 'Camera':
+        return dataclasses.replace(self, **kw)
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def make_camera(position, quat, fov_x_deg: float, width: int, height: int,
+                near: float = 0.05, far: float = 100.0,
+                device=None) -> Camera:
+    fov_x = _f32(fov_x_deg) * _f32(math.pi / 180.0)    # deg2rad in float32
+    fx = (width / 2.0) / torch.tan(fov_x / 2.0)
+    return Camera(position=_f32(position, device), quat=_f32(quat, device),
+                  fx=fx.to(device), fy=fx.clone().to(device),
+                  cx=_f32(width / 2.0, device), cy=_f32(height / 2.0, device),
+                  width=width, height=height, near=near, far=far)
+
+
+def expand_viewport(cam: Camera, margin_px: int) -> Camera:
+    """Expanded sorting viewport for S^2 (Sec. 3.1 of the paper): the
+    viewport grows by ``margin_px`` pixels on each side and the principal
+    point shifts so world geometry stays put."""
+    return cam.replace(cx=cam.cx + margin_px, cy=cam.cy + margin_px,
+                       width=cam.width + 2 * margin_px,
+                       height=cam.height + 2 * margin_px)
+
+
+def look_at(position, target, up=(0.0, 1.0, 0.0)):
+    """Return a (position, quat) pose looking from ``position`` toward
+    ``target`` (COLMAP/3DGS convention: +z forward, +x right, +y down)."""
+    position = _f32(position)
+    target = _f32(target)
+    up = _f32(up)
+    fwd = target - position
+    fwd = fwd / (torch.linalg.vector_norm(fwd) + 1e-12)
+    right = torch.linalg.cross(fwd, up)
+    right = right / (torch.linalg.vector_norm(right) + 1e-12)
+    down = torch.linalg.cross(fwd, right)
+    r = torch.stack([right, down, fwd], dim=1)   # world-from-camera columns
+    return position, rotmat_to_quat(r)
+
+
+def rotmat_to_quat(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [3,3] -> quaternion (w,x,y,z). Branch-free (Shepperd)."""
+    m00, m01, m02 = r[0, 0], r[0, 1], r[0, 2]
+    m10, m11, m12 = r[1, 0], r[1, 1], r[1, 2]
+    m20, m21, m22 = r[2, 0], r[2, 1], r[2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1 + tr, min=1e-12)) / 2
+    qx = torch.sqrt(torch.clamp(1 + m00 - m11 - m22, min=1e-12)) / 2
+    qy = torch.sqrt(torch.clamp(1 - m00 + m11 - m22, min=1e-12)) / 2
+    qz = torch.sqrt(torch.clamp(1 - m00 - m11 + m22, min=1e-12)) / 2
+    cand = torch.stack([
+        torch.stack([qw, (m21 - m12) / (4 * qw), (m02 - m20) / (4 * qw),
+                     (m10 - m01) / (4 * qw)]),
+        torch.stack([(m21 - m12) / (4 * qx), qx, (m01 + m10) / (4 * qx),
+                     (m02 + m20) / (4 * qx)]),
+        torch.stack([(m02 - m20) / (4 * qy), (m01 + m10) / (4 * qy), qy,
+                     (m12 + m21) / (4 * qy)]),
+        torch.stack([(m10 - m01) / (4 * qz), (m02 + m20) / (4 * qz),
+                     (m12 + m21) / (4 * qz), qz]),
+    ])
+    q = cand[torch.argmax(torch.stack([tr, m00, m11, m22]))]
+    return q / (torch.linalg.vector_norm(q) + 1e-12)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t: float) -> torch.Tensor:
+    """Spherical interpolation/extrapolation of quaternions (t may exceed 1)."""
+    q0 = q0 / (torch.linalg.vector_norm(q0) + 1e-12)
+    q1 = q1 / (torch.linalg.vector_norm(q1) + 1e-12)
+    dot = torch.sum(q0 * q1)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(dot)
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-5
+    safe = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe)
+    q = w0 * q0 + w1 * q1
+    return q / (torch.linalg.vector_norm(q) + 1e-12)

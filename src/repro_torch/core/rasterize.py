@@ -1,0 +1,161 @@
+"""Rasterization (color integration) — plain PyTorch reference.
+
+The paper's Eqn. 1 evaluated tile-by-tile in depth order:
+
+    C(p) = sum_i  Gamma_i * alpha_i * c_i,   Gamma_i = prod_{j<i} (1 - alpha_j)
+
+with the two reference-implementation rules Lumina exploits:
+  * Gaussians with alpha <= 1/255 are *insignificant* and skipped;
+  * integration terminates once Gamma < theta (1e-4).
+
+Besides the image, the rasterizer emits the alpha-record (ids of the first
+``k_record`` significant Gaussians of every pixel — the radiance-cache tag
+material), per-pixel significant / iterated counts and the iteration index
+at which the k-th significant Gaussian was found.
+
+Record semantics differ from the kernel's on purpose: here ``rec_cnt`` is
+capped at k, while the kernel (``repro_torch.kernels.rasterize``) counts
+every contribution.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .gaussians import ALPHA_MAX, ALPHA_SIGNIFICANT, TRANSMITTANCE_EPS
+from .tiling import TILE, TileFeatures
+
+P = TILE * TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterAux:
+    """Per-pixel rasterization statistics, shapes [T, P] (P = TILE*TILE)."""
+
+    alpha_record: torch.Tensor   # [T, P, k_record] int32, -1 padded
+    n_significant: torch.Tensor  # [T, P] int32
+    n_iterated: torch.Tensor     # [T, P] int32 (Gaussians seen before termination)
+    iter_at_k: torch.Tensor      # [T, P] int32 (iterations to find k-th significant)
+    transmittance: torch.Tensor  # [T, P] final Gamma
+
+
+def pixel_centers(tiles_x: int, num_tiles: int, device):
+    """Pixel-center coordinates of every tile: two [T, P] float32 tensors."""
+    t = torch.arange(num_tiles, dtype=torch.int32, device=device)
+    p = torch.arange(P, dtype=torch.int32, device=device)
+    px = (t % tiles_x * TILE)[:, None] + (p % TILE)[None, :]
+    py = (t // tiles_x * TILE)[:, None] + (p // TILE)[None, :]
+    return px.float() + 0.5, py.float() + 0.5
+
+
+def chunk_caps(ids: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Per-tile chunk cap: the chunk index one past each tile's last valid
+    Gaussian ([T, K] ids -> [T] int32).  Robust to -1 holes mid-list.  The
+    reference rasterizer and the kernel wrappers share it, so their chunk
+    accounting stays comparable."""
+    k = ids.shape[1]
+    pos = torch.arange(1, k + 1, dtype=torch.int32, device=ids.device)
+    last = torch.where(ids >= 0, pos[None, :], 0).amax(dim=1)
+    return ((last + chunk - 1) // chunk).to(torch.int32)
+
+
+def pad_tile_features(feats: TileFeatures, chunk: int) -> TileFeatures:
+    """Pad the per-tile list length K up to a multiple of ``chunk``.
+    Padding ids are -1 and opacity 0, so padded iterations touch nothing."""
+    k = feats.ids.shape[1]
+    pad = (k + chunk - 1) // chunk * chunk - k
+    if pad == 0:
+        return feats
+
+    def pz(x, fill=0.0):
+        widths = [0, 0] * (x.ndim - 2) + [0, pad]
+        return torch.nn.functional.pad(x, widths, value=fill)
+
+    return TileFeatures(mean2d=pz(feats.mean2d), conic=pz(feats.conic),
+                        color=pz(feats.color), opacity=pz(feats.opacity),
+                        ids=pz(feats.ids, -1))
+
+
+def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
+                    bg: float = 0.0, live=None,
+                    chunk: int = 64) -> tuple[torch.Tensor, RasterAux]:
+    """Integrate colors for all tiles, chunked behind a per-tile early exit.
+
+    ``live`` is anything broadcastable to [T, P] bool: dead pixels contribute
+    nothing and count zero iterations.  A tile stops once every live pixel's
+    transmittance bottoms out or its last valid Gaussian is behind it; the
+    skipped iterations could never change an output.
+
+    Returns (tile_colors [T, P, 3], aux).
+    """
+    num_tiles, k = feats.ids.shape
+    dev = feats.ids.device
+    px, py = pixel_centers(tiles_x, num_tiles, dev)
+    live_tp = torch.broadcast_to(
+        torch.as_tensor(True if live is None else live, device=dev),
+        (num_tiles, P))
+    feats = pad_tile_features(feats, chunk)
+    ncap = chunk_caps(feats.ids, chunk)
+
+    acc = torch.zeros((num_tiles, P, 3), dtype=torch.float32, device=dev)
+    trans = torch.ones((num_tiles, P), dtype=torch.float32, device=dev)
+    rec = torch.full((num_tiles, P, k_record), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((num_tiles, P), dtype=torch.int32, device=dev)
+    nsig = torch.zeros_like(cnt)
+    niter = torch.zeros_like(cnt)
+    itk = torch.full_like(cnt, k)        # iter_at_k defaults to "all of them"
+    slots = torch.arange(k_record, dtype=torch.int32, device=dev)
+
+    c = 0
+    while True:
+        running = (c < ncap) & (live_tp & (trans > TRANSMITTANCE_EPS)).any(1)
+        rows = running.nonzero().squeeze(1)
+        if rows.numel() == 0:
+            break
+        r_px, r_py, r_live = px[rows], py[rows], live_tp[rows]
+        r_acc, r_trans, r_rec = acc[rows], trans[rows], rec[rows]
+        r_cnt, r_nsig, r_niter, r_itk = cnt[rows], nsig[rows], niter[rows], itk[rows]
+        for i in range(c * chunk, (c + 1) * chunk):
+            gm = feats.mean2d[rows, i]
+            gc = feats.conic[rows, i]
+            gcol = feats.color[rows, i]
+            gop = feats.opacity[rows, i][:, None]
+            gid = feats.ids[rows, i][:, None]
+            dx = r_px - gm[:, 0:1]
+            dy = r_py - gm[:, 1:2]
+            power = (-0.5 * (gc[:, 0:1] * dx * dx + gc[:, 2:3] * dy * dy)
+                     - gc[:, 1:2] * dx * dy)
+            alpha = torch.clamp(gop * torch.exp(power), max=ALPHA_MAX)
+            valid = (power <= 0.0) & (gid >= 0)
+            active = (r_trans > TRANSMITTANCE_EPS) & r_live
+            contrib = (alpha > ALPHA_SIGNIFICANT) & valid & active
+
+            w = torch.where(contrib, r_trans * alpha, 0.0)
+            r_acc = r_acc + w[..., None] * gcol[:, None, :]
+            r_trans = torch.where(contrib, r_trans * (1.0 - alpha), r_trans)
+            can = contrib & (r_cnt < k_record)
+            put = (slots == r_cnt[..., None]) & can[..., None]
+            r_rec = torch.where(put, gid[..., None], r_rec)
+            new_cnt = r_cnt + can.int()
+            r_itk = torch.where((new_cnt == k_record) & (r_cnt < k_record),
+                                i + 1, r_itk)
+            r_cnt = new_cnt
+            r_nsig = r_nsig + contrib.int()
+            r_niter = r_niter + (active & (gid >= 0)).int()
+        acc[rows], trans[rows], rec[rows] = r_acc, r_trans, r_rec
+        cnt[rows], nsig[rows], niter[rows], itk[rows] = r_cnt, r_nsig, r_niter, r_itk
+        c += 1
+
+    acc = acc + trans[..., None] * bg
+    aux = RasterAux(alpha_record=rec, n_significant=nsig, n_iterated=niter,
+                    iter_at_k=itk, transmittance=trans)
+    return acc, aux
+
+
+def assemble_image(tile_colors: torch.Tensor, tiles_x: int, tiles_y: int,
+                   width: int, height: int) -> torch.Tensor:
+    """[T, P, 3] tile colors -> [H, W, 3] image (crops tile padding)."""
+    img = tile_colors.reshape(tiles_y, tiles_x, TILE, TILE, 3)
+    img = img.permute(0, 2, 1, 3, 4).reshape(tiles_y * TILE, tiles_x * TILE, 3)
+    return img[:height, :width]

@@ -1,0 +1,299 @@
+"""The tile rasterizer kernel (``csrc/rasterize.cu``) and its plain version.
+
+One block = one 16x16-pixel tile, one thread per pixel.  The tile's
+depth-sorted Gaussian features are walked in chunks of ``chunk``; each
+pixel integrates front to back in the per-Gaussian order of the reference,
+and a chunk-level early exit stops the tile as soon as every pixel is done
+(dead, past its transmittance floor, or — in prefix mode — holding a full
+alpha-record) or the walk passes the tile's chunk cap ``ncap``.
+
+Modes (see ``ops``):
+  * full    — baseline rasterization;
+  * prefix  — ``stop_at_k``: stop each pixel once its k-record fills
+              (radiance-cache phase A);
+  * resume  — continue cache-miss pixels from their saved state, gated by
+              per-pixel ``start_iter`` and ``live`` (phase B).
+``rasterize_compact`` is the miss-compacted resume: the P lanes of a block
+come from different source tiles, each with its own pixel center, source
+tile and chunk cap.
+
+The kernel's record count counts every contribution (``rec_cnt`` may pass
+k); only the first k ids are recorded.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.gaussians import ALPHA_MAX, ALPHA_SIGNIFICANT, TRANSMITTANCE_EPS
+from ..core.rasterize import P, pixel_centers
+from . import LAUNCHES, build
+
+_SIGNATURES = {'rasterize_launch': (20, 6, 1),
+               'rasterize_compact_launch': (23, 4, 1)}
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterState:
+    """Per-pixel kernel state: inputs (phase init) and outputs alike."""
+
+    acc: torch.Tensor        # [T, P, 3]
+    trans: torch.Tensor      # [T, P]
+    record: torch.Tensor     # [T, P, k]
+    rec_cnt: torch.Tensor    # [T, P]
+    n_sig: torch.Tensor      # [T, P]
+    n_iter: torch.Tensor     # [T, P]
+    iter_at_k: torch.Tensor  # [T, P]
+    chunks: torch.Tensor     # [T, 1] chunks actually processed
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _walk(feat_at, px, py, state, start, live, c0, cond, *, k_record, chunk,
+          stop_at_k):
+    """Per-tile chunk loops of the kernel, run for all tiles at once.
+
+    Tile ``t`` starts at chunk ``c0[t]`` and keeps going while ``cond(c,
+    state)`` holds for it; once false it stops for good, exactly like the
+    kernel's ``while``.  ``feat_at(rows, pos)`` returns the features
+    (mean2d [R,P,2], conic [R,P,3], color [R,P,3], opacity [R,P], ids [R,P])
+    of list position ``pos`` for the given rows.  ``state`` is updated in
+    place; returns chunks [T, 1].
+    """
+    acc, trans, rec, cnt, nsig, niter, itk = state
+    dev = trans.device
+    t = trans.shape[0]
+    slots = torch.arange(k_record, dtype=torch.int32, device=dev)
+    chunks = torch.zeros((t,), dtype=torch.int32, device=dev)
+    alive = torch.ones((t,), dtype=torch.bool, device=dev)
+    c = int(c0.min()) if t else 0
+    while True:
+        started = c >= c0
+        alive = alive & (~started | cond(c))
+        if not bool(alive.any()):
+            break
+        rows = (alive & started).nonzero().squeeze(1)
+        if rows.numel():
+            r_px, r_py, r_start, r_live = px[rows], py[rows], start[rows], live[rows]
+            r_acc, r_trans, r_rec = acc[rows], trans[rows], rec[rows]
+            r_cnt, r_nsig, r_niter, r_itk = cnt[rows], nsig[rows], niter[rows], itk[rows]
+            for pos in range(c * chunk, (c + 1) * chunk):
+                gm, gc, gcol, gop, gid = feat_at(rows, pos)
+                dx = r_px - gm[..., 0]
+                dy = r_py - gm[..., 1]
+                power = (-0.5 * (gc[..., 0] * dx * dx + gc[..., 2] * dy * dy)
+                         - gc[..., 1] * dx * dy)
+                alpha = torch.clamp(gop * torch.exp(power), max=ALPHA_MAX)
+                valid = (power <= 0.0) & (gid >= 0)
+                allowed = (pos >= r_start) & r_live
+                active = r_trans > TRANSMITTANCE_EPS
+                sig = (alpha > ALPHA_SIGNIFICANT) & valid & allowed
+                examined = active & (gid >= 0) & allowed
+                if stop_at_k:
+                    sig = sig & (r_cnt < k_record)
+                    examined = examined & (r_cnt < k_record)
+                contrib = sig & active
+
+                w = torch.where(contrib, r_trans * alpha, 0.0)
+                r_acc = r_acc + w[..., None] * gcol
+                r_trans = torch.where(contrib, r_trans * (1.0 - alpha), r_trans)
+                put = (slots == r_cnt[..., None]) & (contrib & (r_cnt < k_record))[..., None]
+                r_rec = torch.where(put, gid[..., None], r_rec)
+                new_cnt = r_cnt + contrib.int()
+                r_itk = torch.where((new_cnt >= k_record) & (r_cnt < k_record)
+                                    & contrib, pos + 1, r_itk)
+                r_cnt = new_cnt
+                r_nsig = r_nsig + contrib.int()
+                r_niter = r_niter + examined.int()
+            acc[rows], trans[rows], rec[rows] = r_acc, r_trans, r_rec
+            cnt[rows], nsig[rows], niter[rows], itk[rows] = r_cnt, r_nsig, r_niter, r_itk
+            chunks[rows] += 1
+        c += 1
+    return chunks[:, None]
+
+
+def _init_state(acc0, trans0, rec0, cnt0, k_total):
+    t = trans0.shape[0]
+    zeros = torch.zeros((t, P), dtype=torch.int32, device=trans0.device)
+    return [acc0.clone().float(), trans0.clone().float(), rec0.clone(),
+            cnt0.clone(), zeros, zeros.clone(), torch.full_like(zeros, k_total)]
+
+
+def rasterize_plain(mean2d, conic, color, opacity, ids, acc0, trans0, rec0,
+                    cnt0, start_iter, live, ncap, *, tiles_x: int,
+                    k_record: int = 5, chunk: int = 64,
+                    stop_at_k: bool = False) -> RasterState:
+    """The rasterize kernel written with tensor ops (same arguments)."""
+    t, k_total = ids.shape
+    px, py = pixel_centers(tiles_x, t, ids.device)
+    live_b = live != 0
+    nc = torch.clamp(ncap.reshape(t), max=k_total // chunk)
+    start_eff = torch.where(live_b, start_iter, k_total)
+    c0 = torch.minimum(start_eff.amin(1) // chunk, nc)
+    state = _init_state(acc0, trans0, rec0, cnt0, k_total)
+
+    def cond(c):
+        trans, cnt = state[1], state[3]
+        done = ~live_b | (trans <= TRANSMITTANCE_EPS)
+        if stop_at_k:
+            done = done | (cnt >= k_record)
+        return (c < nc) & ~done.all(1)
+
+    def feat_at(rows, pos):
+        return (mean2d[rows, pos][:, None], conic[rows, pos][:, None],
+                color[rows, pos][:, None], opacity[rows, pos][:, None],
+                ids[rows, pos][:, None])
+
+    chunks = _walk(feat_at, px, py, state, start_iter, live_b, c0, cond,
+                   k_record=k_record, chunk=chunk, stop_at_k=stop_at_k)
+    return RasterState(*state, chunks=chunks)
+
+
+def rasterize_compact_plain(mean2d, conic, color, opacity, ids, px, py, src,
+                            ncap, acc0, trans0, rec0, cnt0, start_iter, live,
+                            *, k_record: int = 5,
+                            chunk: int = 64) -> RasterState:
+    """The compacted-resume kernel written with tensor ops (same arguments)."""
+    k_total = ids.shape[1]
+    nc_total = k_total // chunk
+    live_b = live != 0
+    start_eff = torch.where(live_b, start_iter, k_total)
+    c0 = torch.clamp(start_eff.amin(1) // chunk, max=nc_total)
+    state = _init_state(acc0, trans0, rec0, cnt0, k_total)
+    src = src.long()
+
+    def cond(c):
+        left = live_b & (state[1] > TRANSMITTANCE_EPS) & (c < ncap)
+        return (c < nc_total) & left.any(1)
+
+    def feat_at(rows, pos):
+        s = src[rows]
+        return mean2d[s, pos], conic[s, pos], color[s, pos], opacity[s, pos], ids[s, pos]
+
+    chunks = _walk(feat_at, px, py, state, start_iter, live_b, c0, cond,
+                   k_record=k_record, chunk=chunk, stop_at_k=False)
+    return RasterState(*state, chunks=chunks)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on the CPU, the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+def _check(expect: dict, device: torch.device) -> None:
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != device:
+            raise ValueError(f'{name} lies on {x.device}, expected {device}')
+        if x.dtype != dtype:
+            raise TypeError(f'{name} has dtype {x.dtype}, expected {dtype}')
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f'{name} has shape {tuple(x.shape)}, expected {tuple(shape)}')
+        if not x.is_contiguous():
+            raise ValueError(f'{name} is not contiguous')
+
+
+def _outputs(n: int, k_record: int, device) -> list:
+    f32, i32 = torch.float32, torch.int32
+    return [torch.empty((n, P, 3), dtype=f32, device=device),
+            torch.empty((n, P), dtype=f32, device=device),
+            torch.empty((n, P, k_record), dtype=i32, device=device),
+            *[torch.empty((n, P), dtype=i32, device=device) for _ in range(4)],
+            torch.empty((n, 1), dtype=i32, device=device)]
+
+
+def _state_spec(n: int, k_record: int, acc0, trans0, rec0, cnt0,
+                start_iter, live) -> dict:
+    f32, i32 = torch.float32, torch.int32
+    return {'acc0': (acc0, f32, (n, P, 3)), 'trans0': (trans0, f32, (n, P)),
+            'rec0': (rec0, i32, (n, P, k_record)), 'cnt0': (cnt0, i32, (n, P)),
+            'start_iter': (start_iter, i32, (n, P)),
+            'live': (live, i32, (n, P))}
+
+
+def _feature_spec(mean2d, conic, color, opacity, ids) -> dict:
+    t, k = ids.shape
+    f32 = torch.float32
+    return {'mean2d': (mean2d, f32, (t, k, 2)), 'conic': (conic, f32, (t, k, 3)),
+            'color': (color, f32, (t, k, 3)), 'opacity': (opacity, f32, (t, k)),
+            'ids': (ids, torch.int32, (t, k))}
+
+
+def rasterize(mean2d, conic, color, opacity, ids, acc0, trans0, rec0, cnt0,
+              start_iter, live, ncap, *, tiles_x: int, k_record: int = 5,
+              chunk: int = 64, stop_at_k: bool = False) -> RasterState:
+    """Rasterize [T, K] feature lists into [T, P] pixel state.
+
+    Features: mean2d [T,K,2], conic [T,K,3], color [T,K,3], opacity [T,K]
+    float32 and ids [T,K] int32, K a multiple of ``chunk``.  State: acc0
+    [T,P,3], trans0 [T,P] float32; rec0 [T,P,k], cnt0, start_iter, live
+    [T,P] int32.  ``ncap`` [T] int32 caps the chunks each tile may walk.
+    """
+    t, k_total = ids.shape
+    if k_total % chunk:
+        raise ValueError(f'K={k_total} is not a multiple of chunk={chunk}')
+    if ids.device.type == 'cpu':
+        return rasterize_plain(mean2d, conic, color, opacity, ids, acc0, trans0,
+                               rec0, cnt0, start_iter, live, ncap,
+                               tiles_x=tiles_x, k_record=k_record, chunk=chunk,
+                               stop_at_k=stop_at_k)
+    if ids.device.type != 'cuda':
+        raise ValueError(f'no rasterize kernel for device {ids.device}')
+    _check({**_feature_spec(mean2d, conic, color, opacity, ids),
+            **_state_spec(t, k_record, acc0, trans0, rec0, cnt0,
+                          start_iter, live),
+            'ncap': (ncap, torch.int32, (t,))}, ids.device)
+    out = _outputs(t, k_record, ids.device)
+    if t:
+        lib = build.load('rasterize', _SIGNATURES)
+        with torch.cuda.device(ids.device):
+            code = lib.rasterize_launch(
+                *[x.data_ptr() for x in (mean2d, conic, color, opacity, ids,
+                                         acc0, trans0, rec0, cnt0, start_iter,
+                                         live, ncap)],
+                *[x.data_ptr() for x in out],
+                t, k_total, tiles_x, k_record, chunk, int(stop_at_k),
+                torch.cuda.current_stream(ids.device).cuda_stream)
+        build.check(lib, 'rasterize', code, 'rasterize kernel')
+        LAUNCHES['rasterize'] += 1
+    return RasterState(*out)
+
+
+def rasterize_compact(mean2d, conic, color, opacity, ids, px, py, src, ncap,
+                      acc0, trans0, rec0, cnt0, start_iter, live, *,
+                      k_record: int = 5, chunk: int = 64) -> RasterState:
+    """Resume integration over CT compacted tiles of lanes: features are the
+    full [T, K, ...] lists; px/py [CT,P] float32, src/ncap [CT,P] int32 and
+    the state tensors are [CT, P, ...] (see ``rasterize``)."""
+    k_total = ids.shape[1]
+    ct = src.shape[0]
+    if k_total % chunk:
+        raise ValueError(f'K={k_total} is not a multiple of chunk={chunk}')
+    if ids.device.type == 'cpu':
+        return rasterize_compact_plain(mean2d, conic, color, opacity, ids, px,
+                                       py, src, ncap, acc0, trans0, rec0, cnt0,
+                                       start_iter, live, k_record=k_record,
+                                       chunk=chunk)
+    if ids.device.type != 'cuda':
+        raise ValueError(f'no rasterize_compact kernel for device {ids.device}')
+    f32, i32 = torch.float32, torch.int32
+    _check({**_feature_spec(mean2d, conic, color, opacity, ids),
+            'px': (px, f32, (ct, P)), 'py': (py, f32, (ct, P)),
+            'src': (src, i32, (ct, P)), 'ncap': (ncap, i32, (ct, P)),
+            **_state_spec(ct, k_record, acc0, trans0, rec0, cnt0,
+                          start_iter, live)}, ids.device)
+    out = _outputs(ct, k_record, ids.device)
+    if ct:
+        lib = build.load('rasterize', _SIGNATURES)
+        with torch.cuda.device(ids.device):
+            code = lib.rasterize_compact_launch(
+                *[x.data_ptr() for x in (mean2d, conic, color, opacity, ids, px,
+                                         py, src, ncap, acc0, trans0, rec0,
+                                         cnt0, start_iter, live)],
+                *[x.data_ptr() for x in out],
+                ct, k_total, k_record, chunk,
+                torch.cuda.current_stream(ids.device).cuda_stream)
+        build.check(lib, 'rasterize', code, 'rasterize_compact kernel')
+        LAUNCHES['rasterize_compact'] += 1
+    return RasterState(*out)
