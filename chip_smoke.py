@@ -22,8 +22,23 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    of the main path, and each kernel is held against its plain version on
    them (integer outputs exactly, floats within 128 ulps x magnitude) and
    timed with CUDA events beside it;
-6. print the ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
+   + ``BatchedStepper``) serves 4 viewers of 12 frames each, arriving 2
+   ticks apart, in 4 slots at the same size, once with one viewer per scene
+   (4 scenes whose orbits start 90 deg apart) and once with all 4 viewers
+   on one scene and one orbit.  Each run goes through the kernel backend
+   with the launch counts set to 0 just before and read just after, then
+   through the reference backend: sorted flags, hit counts, the sort log
+   and the cache tags/age/clock must be identical on every tick and images
+   within 128 ulps x magnitude.  In the first run, slot 0 is also held
+   against ``LuminSys(backend='kernel')`` on its 12 cameras.  The inputs of
+   the serving tick's three kernels (``rasterize_slots``,
+   ``rasterize_compact`` over the miss lanes of all slots, ``rc_lookup``
+   over the scene's groups) are captured from a tick of the second run with
+   all 4 lanes live, and each kernel is held against its plain version
+   there and timed;
+7. print the total wall time, the ``{"kernels": [...]}`` line, then the
+   last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -53,6 +68,19 @@ FEATURE_BYTES = 40      # mean2d 8 + conic 12 + color 12 + opacity 4 + id 4
 PSNR_FLOOR_DB = 15.0
 # the main path's shapes: the lumina_3dgs workload at full width and depth
 GAUSSIANS, WIDTH, HEIGHT, FRAMES, SEED = 1_000_000, 1920, 1080, 12, 0
+# the serving phase: 4 viewers of FRAMES frames arriving 2 ticks apart in 4
+# slots; ticks 0 and 10 are profiled stage by stage (tick 10 has all 4
+# lanes live and no sort), and the serving kernels' inputs are captured at
+# tick 11 (all 4 lanes live, no sort, not profiled)
+VIEWERS, STAGGER, PROFILE_EVERY, CAPTURE_TICK = 4, 2, 10, 11
+DEVICE = 'cuda'
+
+
+def serve_kernels(pkg) -> list:
+    """The serving tick's kernel wrappers, as ``patched`` targets."""
+    return [(pkg.rk, 'rasterize_slots', 'rasterize_slots'),
+            (pkg.rk, 'rasterize_compact', 'rasterize_compact'),
+            (pkg.ops, '_rc_lookup_kernel', 'rc_lookup')]
 
 
 def fail(msg: str) -> None:
@@ -186,7 +214,6 @@ def check_raster(name: str, got, want) -> float:
 
 
 def kernel_phase(calls, pkg, launches, chunk: int) -> list:
-    import torch
     rk, rcl = pkg.rk, pkg.rcl
     rows = []
 
@@ -216,13 +243,24 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
           f'{bound_ms:.4f} ms ({bound_by}); {int(got.chunks.sum())} chunks '
           f'over {got.chunks.numel()} tiles', flush=True)
 
-    # -- rasterize_compact (phase B over miss-compacted lanes)
-    args, kw = calls['rasterize_compact']
+    rows.append(compact_row(rk, calls['rasterize_compact'],
+                            launches['rasterize_compact'], chunk, plain_reps=3))
+    rows.append(rc_lookup_row(rcl, calls['rc_lookup'], launches['rc_lookup']))
+    return rows
+
+
+def compact_row(rk, call, launches: int, chunk: int, *, plain_reps: int,
+                label: str = 'rasterize_compact') -> dict:
+    """rasterize_compact (phase B over miss-compacted lanes) against its
+    plain version on one captured call."""
+    import torch
+    args, kw = call
     got = rk.rasterize_compact(*args, **kw)
     want = rk.rasterize_compact_plain(*args, **kw)
-    err = check_raster('rasterize_compact', got, want)
+    err = check_raster(label, got, want)
     ms = time_ms(lambda: rk.rasterize_compact(*args, **kw), 20)
-    plain_ms = time_ms(lambda: rk.rasterize_compact_plain(*args, **kw), 3)
+    plain_ms = time_ms(lambda: rk.rasterize_compact_plain(*args, **kw),
+                       plain_reps)
     # feature chunks the live lanes need: distinct (source tile, chunk) pairs
     ids, src, ncap, start, live = args[4], args[7], args[8], args[13], args[14]
     nc_total = ids.shape[1] // chunk
@@ -238,25 +276,29 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
     k = got.record.shape[-1]
     bound_ms, bound_by = raster_bound(got, chunk, int(need.sum()),
                                       int((live != 0).sum()), 11 + k)
-    rows.append(dict(name='rasterize_compact', route='cuda',
-                     source='src/repro_torch/kernels/csrc/rasterize.cu',
-                     replaces='src/repro/kernels/rasterize.py:355',
-                     launches=launches['rasterize_compact'], max_abs_err=err,
-                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=None))
-    print(f'kernel rasterize_compact: exact ints, max_abs_err {err}; '
+    print(f'kernel {label}: exact ints, max_abs_err {err}; '
           f'{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
-          f'({bound_by}); {int((live != 0).sum())} live lanes, '
+          f'({bound_by}); {int((live != 0).sum())} live lanes in '
+          f'{src.shape[0]} lane tiles over {ids.shape[0]} source tiles, '
           f'{int(got.chunks.sum())} chunks', flush=True)
+    return dict(name='rasterize_compact', route='cuda',
+                source='src/repro_torch/kernels/csrc/rasterize.cu',
+                replaces='src/repro/kernels/rasterize.py:355',
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
-    # -- rc_lookup (the LuminCache probe)
-    args, _ = calls['rc_lookup']
+
+def rc_lookup_row(rcl, call, launches: int, label: str = 'rc_lookup') -> dict:
+    """rc_lookup (the LuminCache probe) against its plain version on one
+    captured call."""
+    import torch
+    args, _ = call
     tags, values, ids_g, cfg = args
     got = rcl.rc_lookup(*args)
     want = rcl.rc_lookup_plain(*args)
     for i, field in enumerate(('hit', 'value', 'set_idx', 'way')):
         if not bool((got[i] == want[i]).all()):
-            fail(f'rc_lookup: {field} differs from the plain version')
+            fail(f'{label}: {field} differs from the plain version')
     err = float((got[1] - want[1]).abs().max())
     ms = time_ms(lambda: rcl.rc_lookup(*args), 20)
     plain_ms = time_ms(lambda: rcl.rc_lookup_plain(*args), 5)
@@ -264,17 +306,16 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
     sets = torch.unique(got[2].long() + s * torch.arange(g, device=tags.device)[:, None])
     nbytes = (ids_g.numel() * 4 + sets.numel() * w * (k + 3) * 4
               + got[0].numel() * (1 + 12 + 4 + 4))
-    rows.append(dict(name='rc_lookup', route='cuda',
-                     source='src/repro_torch/kernels/csrc/rc_lookup.cu',
-                     replaces='src/repro/kernels/rc_lookup.py:49',
-                     launches=launches['rc_lookup'], max_abs_err=err, ms=ms,
-                     plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-                     bound_by='bytes', library_ms=None))
-    print(f'kernel rc_lookup: exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms, '
-          f'bound {rows[-1]["bound_ms"]:.4f} ms (bytes); '
-          f'{int(got[0].sum())}/{got[0].numel()} hits, {sets.numel()} sets probed',
-          flush=True)
-    return rows
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f'kernel {label}: exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms, '
+          f'bound {bound_ms:.4f} ms (bytes); ids {list(ids_g.shape)}, '
+          f'{int(got[0].sum())}/{got[0].numel()} hits, {sets.numel()} sets '
+          f'probed', flush=True)
+    return dict(name='rc_lookup', route='cuda',
+                source='src/repro_torch/kernels/csrc/rc_lookup.cu',
+                replaces='src/repro/kernels/rc_lookup.py:49',
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by='bytes', library_ms=None)
 
 
 def lumina_config(pkg, **overrides):
@@ -325,8 +366,8 @@ def main_path(pkg) -> tuple:
                         image, c.tags.clone(), c.age.clone(), c.clock.clone()))
     launches = dict(pkg.kernels.LAUNCHES)
     print(f'launches in the main path: {json.dumps(launches)}', flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ('rasterize', 'rasterize_compact', 'rc_lookup'):
+        if launches[name] <= 0:
             fail(f'kernel {name} was not launched by the main path')
     shade = [ms for s, ms in frame_ms[1:] if not s]
     sort = [ms for s, ms in frame_ms[1:] if s]
@@ -390,6 +431,256 @@ def quality(pkg, scene, cams, records) -> None:
             fail(f'PSNR {min(dbs.values()):.2f} dB against the baseline')
 
 
+def serve_sessions(pkg, viewers_per_scene: int) -> list:
+    """VIEWERS sessions of FRAMES frames arriving STAGGER ticks apart; the
+    viewers of a scene ride one orbit, and the scenes' orbits start 90 deg
+    apart."""
+    orbits = {}
+    sessions = []
+    for sid in range(VIEWERS):
+        scene_id = sid // viewers_per_scene
+        if scene_id not in orbits:
+            orbits[scene_id] = pkg.orbit_trajectory(
+                FRAMES, width=WIDTH, height_px=HEIGHT,
+                start_deg=90.0 * scene_id, device=DEVICE)
+        sessions.append(pkg.serve.ViewerSession(
+            sid=sid, cams=orbits[scene_id], arrival_tick=sid * STAGGER,
+            scene_id=scene_id))
+    return sessions
+
+
+def serve_run(pkg, scene, backend: str, viewers_per_scene: int, *,
+              check=None, capture=None) -> dict:
+    """Serve the sessions through ``SessionManager`` + ``SyncDriver`` on one
+    backend.  Every frame's image, hit count and sorted flag, and the
+    cache's tags/age/clock after every tick, are recorded, or handed to
+    ``check(tick, slot_frames, cache)``.  ``capture``, a dict, receives the
+    arguments of each serving kernel's first call at CAPTURE_TICK, keyed by
+    the kernel's name.  The launch counts are set to 0 just before the run
+    and read just after."""
+    import torch
+    cfg = lumina_config(pkg, backend=backend)
+    sessions = serve_sessions(pkg, viewers_per_scene)
+    stepper = pkg.serve.BatchedStepper(
+        scene, cfg, sessions[0].cams[0], VIEWERS,
+        profile_every=PROFILE_EVERY if backend == 'kernel' else 0,
+        viewers_per_scene=viewers_per_scene, device=DEVICE)
+    mgr = pkg.serve.SessionManager(stepper, VIEWERS)
+    for sess in sessions:
+        mgr.submit(sess)
+    pixels = stepper.tiles_x * stepper.tiles_y * 256
+    run = {'frames': {}, 'caches': {}}
+    finish = stepper.step_finish
+
+    def recording_finish(infl):
+        tick = stepper.global_tick - 1
+        out = finish(infl)
+        frames = {slot: (img, round(float(st.hit_rate) * pixels),
+                         float(st.sorted_this_frame))
+                  for slot, (img, st, _) in out.items()}
+        c = stepper.shared.cache
+        cache = (c.tags.clone(), c.age.clone(), c.clock.clone())
+        if check is None:
+            run['frames'].update({(tick, s): f for s, f in frames.items()})
+            run['caches'][tick] = cache
+        else:
+            check(tick, frames, cache)
+        return out
+
+    stepper.step_finish = recording_finish
+
+    def wrap(label, fn):
+        def recorder(*args, **kwargs):
+            if stepper.global_tick == CAPTURE_TICK and label not in capture:
+                capture[label] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return recorder
+
+    targets = [] if capture is None else serve_kernels(pkg)
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    with patched(targets, wrap):
+        finished = mgr.run(driver='sync')
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    run.update(wall_s=time.perf_counter() - t0,
+               launches=dict(pkg.kernels.LAUNCHES), mgr=mgr, stepper=stepper,
+               finished=sorted(finished, key=lambda s: s.sid))
+    return run
+
+
+def serve_summary(pkg, label: str, run: dict) -> dict:
+    """Print the serving numbers of one kernel-backend run."""
+    import numpy as np
+    mgr, stepper = run['mgr'], run['stepper']
+    log = mgr.tick_log
+    lat = sorted(t['latency_ms'] for t in log if t['tick'] > 0)
+    summaries = [s.telemetry.summary() for s in run['finished']]
+    agg = pkg.serve.aggregate(summaries)
+    due = int(sum(sum(s.telemetry.sorted_flags) for s in run['finished']))
+    executed = sum(e['scheduled'] + e['admit'] for e in stepper.sort_log)
+    saved = [f for s in run['finished'] for f in s.telemetry.saved_fracs]
+    steady = next((t['kernel_ms'] for t in log
+                   if t['tick'] == PROFILE_EVERY and t.get('kernel_ms')), None)
+    last = log[-1]
+    out = dict(ticks=mgr.tick, frames=agg['frames'],
+               # with this few ticks the largest is the nearest-rank p95
+               ticks_timed=len(lat), tick_ms_median=float(np.median(lat)),
+               tick_ms_max=lat[-1], viewer_fps=agg['fleet_fps'],
+               sorts_executed=executed, sorts_due=due,
+               hit_rate=agg['mean_hit_rate'],
+               saved_frac=float(np.mean(saved)),
+               occupancy=float(last['occupancy']),
+               state_bytes=max(t['state_bytes'] for t in log),
+               state_alloc_bytes=max(t['state_alloc_bytes'] for t in log),
+               stage_ms_tick10=steady, wall_s=run['wall_s'],
+               launches=run['launches'])
+    print(f'serve {label}: ' + json.dumps(out), flush=True)
+    return out
+
+
+def serve_phase(pkg, scene) -> tuple:
+    """Both serving modes on both backends; returns (the launch counts of
+    the shared kernel run, the serving kernels' inputs captured in it)."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    capture = {}
+    shared_launches = None
+    for label, vps in (('private', 1), ('shared', VIEWERS)):
+        run = serve_run(pkg, scene, 'kernel', vps,
+                        capture=capture if vps > 1 else None)
+        for name in ('rasterize_slots', 'rasterize_compact', 'rc_lookup'):
+            if run['launches'][name] <= 0:
+                fail(f'serve {label}: kernel {name} was not launched by the '
+                     f'serving path')
+        if vps > 1:
+            shared_launches = run['launches']
+        for (tick, slot), (img, _, _) in run['frames'].items():
+            if tuple(img.shape) != (HEIGHT, WIDTH, 3) or \
+                    not bool(torch.isfinite(img).all()):
+                fail(f'serve {label}: tick {tick} slot {slot} image is '
+                     f'{tuple(img.shape)} or not finite')
+        serve_summary(pkg, label, run)
+        worst = [0.0, 0.0]
+
+        def check(tick, frames, cache, run=run, label=label, worst=worst):
+            for slot, (img, hits, flag) in frames.items():
+                want = run['frames'].get((tick, slot))
+                if want is None or (hits, flag) != want[1:]:
+                    fail(f'serve {label}: tick {tick} slot {slot}: reference '
+                         f'(hits, sorted) {(hits, flag)} != kernel '
+                         f'{None if want is None else want[1:]}')
+                if not ulp_close(want[0], img):
+                    fail(f'serve {label}: tick {tick} slot {slot}: images '
+                         f'differ by more than {ULPS} ulps')
+                diff = (want[0] - img).abs()
+                scale = torch.clamp(torch.maximum(want[0].abs(), img.abs()),
+                                    min=1.0)
+                worst[0] = max(worst[0], float(diff.max()))
+                worst[1] = max(worst[1], float((diff / (eps * scale)).max()))
+            for name, x, y in zip(('tags', 'age', 'clock'), cache,
+                                  run['caches'][tick]):
+                if not bool(torch.equal(x, y)):
+                    fail(f'serve {label}: tick {tick}: cache {name} differs '
+                         f'between the backends')
+
+        ref = serve_run(pkg, scene, 'reference', vps, check=check)
+        if ref['stepper'].sort_log != run['stepper'].sort_log:
+            fail(f'serve {label}: the backends logged different sorts')
+        print(f'serve {label}: reference backend made identical decisions on '
+              f'all {ref["mgr"].tick} ticks ({len(run["frames"])} frames, '
+              f'sort_log {json.dumps(run["stepper"].sort_log)}); images '
+              f'within {ULPS} ulps (largest difference {worst[0]!r}, '
+              f'{worst[1]!r} ulps x magnitude); reference run took '
+              f'{ref["wall_s"]:.1f} s', flush=True)
+        if vps == 1:
+            single_viewer_oracle(pkg, scene, run)
+        del run, ref
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+    for _, _, name in serve_kernels(pkg):
+        if name not in capture:
+            fail(f'{name} was not called at tick {CAPTURE_TICK}')
+    return shared_launches, capture
+
+
+def single_viewer_oracle(pkg, scene, run) -> None:
+    """Slot 0 (admitted at tick 0) against ``LuminSys`` on its cameras."""
+    import torch
+    cams = run['finished'][0].cams
+    sys_ = pkg.lp.LuminSys(scene, lumina_config(pkg, backend='kernel'),
+                           cams[0], device=DEVICE)
+    pixels = run['stepper'].tiles_x * run['stepper'].tiles_y * 256
+    for f, cam in enumerate(cams):
+        image, st = sys_.step(cam)
+        img, hits, flag = run['frames'][(f, 0)]
+        got = (round(float(st.hit_rate) * pixels),
+               float(st.sorted_this_frame))
+        if got != (hits, flag):
+            fail(f'serve private: slot 0 frame {f}: LuminSys (hits, sorted) '
+                 f'{got} != {(hits, flag)}')
+        if not ulp_close(image, img):
+            fail(f'serve private: slot 0 frame {f}: images differ from '
+                 f'LuminSys by more than {ULPS} ulps')
+    c = sys_.cache
+    tags, age, clock = run['caches'][len(cams) - 1]
+    if not (torch.equal(c.tags, tags[0]) and torch.equal(c.age, age[0])
+            and torch.equal(c.clock, clock[0])):
+        fail('serve private: slot 0 cache differs from LuminSys')
+    print(f'serve private: slot 0 equals LuminSys(backend="kernel") on all '
+          f'{len(cams)} frames (hits, sorted flags, images, cache)',
+          flush=True)
+
+
+def serve_kernel_rows(pkg, capture, launches: dict, chunk: int) -> tuple:
+    """Each serving kernel against its plain version at the shapes the
+    shared run gave it: the rasterize_slots row, and the rasterize_compact
+    and rc_lookup rows at serving shapes."""
+    slots = slots_kernel_row(pkg, capture['rasterize_slots'],
+                             launches['rasterize_slots'], chunk)
+    compact = compact_row(pkg.rk, capture['rasterize_compact'],
+                          launches['rasterize_compact'], chunk, plain_reps=1,
+                          label='rasterize_compact[serve]')
+    lookup = rc_lookup_row(pkg.rcl, capture['rc_lookup'],
+                           launches['rc_lookup'], label='rc_lookup[serve]')
+    return slots, compact, lookup
+
+
+def slots_kernel_row(pkg, call, launches: int, chunk: int) -> dict:
+    """rasterize_slots against its plain version on the captured inputs."""
+    import torch
+    rk = pkg.rk
+    args, kw = call
+    got = rk.rasterize_slots(*args, **kw)
+    want = rk.rasterize_slots_plain(*args, **kw)
+    err = check_raster('rasterize_slots', got, want)
+    # what the walked (slot, tile) blocks read: each slot's own trip count,
+    # from the single-slot kernel on the same inputs; their max per tile
+    # must be the shared count (the argument of the kernel's source note)
+    mean2d, conic, color, opacity, ids, acc0, trans0, rec0, cnt0, live, ncap = args
+    per_slot = torch.stack([rk.rasterize(
+        mean2d[i], conic[i], color[i], opacity[i], ids[i], acc0[i], trans0[i],
+        rec0[i], cnt0[i], torch.zeros_like(cnt0[i]), live[i], ncap[i],
+        **kw).chunks[:, 0] for i in range(ids.shape[0])])
+    if not bool((per_slot.amax(0) == got.chunks[:, 0]).all()):
+        fail('rasterize_slots: chunks is not the max of the per-slot counts')
+    ms = time_ms(lambda: rk.rasterize_slots(*args, **kw), 20)
+    plain_ms = time_ms(lambda: rk.rasterize_slots_plain(*args, **kw), 1)
+    bound_ms, bound_by = raster_bound(got, chunk, int(per_slot.sum()),
+                                      got.trans.numel(), 0)
+    live_slots = int((live != 0).flatten(1).any(1).sum())
+    print(f'kernel rasterize_slots: exact ints and chunks, max_abs_err {err}; '
+          f'{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
+          f'({bound_by}); {live_slots} live slots, shared trip count '
+          f'{int(got.chunks.sum())} chunks over {got.chunks.numel()} tiles, '
+          f'per-slot blocks walked {int(per_slot.sum())} chunks', flush=True)
+    return dict(name='rasterize_slots', route='cuda',
+                source='src/repro_torch/kernels/csrc/rasterize.cu',
+                replaces='src/repro/kernels/rasterize.py:510',
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def main() -> int:
     if not (HERE / 'src' / 'repro_torch').is_dir():
         print('chip_smoke: src/repro_torch not found beside this script',
@@ -413,11 +704,13 @@ def main() -> int:
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
+    import repro_torch.serve as serve
     pkg = types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
-        rk=rk, rcl=rcl, structured_scene=scenes.structured_scene,
+        rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
         orbit_trajectory=trajectory.orbit_trajectory)
 
+    t_start = time.perf_counter()
     print(f'card: {card_line()}', flush=True)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}',
@@ -447,6 +740,21 @@ def main() -> int:
     calls = capture_inputs(pkg, lambda: lp.render_step(scene, states[last],
                                                        cams[last], cfg))
     rows = kernel_phase(calls, pkg, launches, cfg.shade_chunk)
+    del states, records, calls
+    torch.cuda.empty_cache()
+
+    serve_launches, capture = serve_phase(pkg, scene)
+    slots, compact, lookup = serve_kernel_rows(pkg, capture, serve_launches,
+                                               cfg.shade_chunk)
+    # rasterize_compact and rc_lookup run on both paths: their rows hold the
+    # main path's call, and 'serve' holds the shared serving run's
+    serve_keys = ('launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                  'bound_by')
+    for row, srow in ((rows[1], compact), (rows[2], lookup)):
+        row['serve'] = {key: srow[key] for key in serve_keys}
+    rows.insert(1, slots)
+    print(f'total wall time {time.perf_counter() - t_start:.1f} s',
+          flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

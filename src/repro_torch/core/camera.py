@@ -4,6 +4,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 
@@ -17,6 +18,12 @@ class Camera:
     cx, cy   : principal point (pixels), 0-d float32 tensors
     width, height : Python ints (image size in pixels)
     near, far     : clip planes
+    host_pose     : (position, quat) as float32 numpy arrays when the pose
+                    was made on the host, else None.  The serving scheduler
+                    keys pose cells from it without reading the device.
+
+    A stack of S cameras (``stack_cameras``) has the same fields with a
+    leading [S] axis on every tensor; ``camera_at`` takes one back out.
     """
 
     position: torch.Tensor
@@ -29,9 +36,47 @@ class Camera:
     height: int
     near: float = 0.05
     far: float = 100.0
+    host_pose: tuple | None = dataclasses.field(default=None, compare=False,
+                                                repr=False)
 
     def replace(self, **kw) -> 'Camera':
+        # a new pose invalidates the host copy of the old one
+        if 'position' in kw or 'quat' in kw:
+            kw.setdefault('host_pose', None)
         return dataclasses.replace(self, **kw)
+
+
+_TENSOR_FIELDS = ('position', 'quat', 'fx', 'fy', 'cx', 'cy')
+
+
+def stack_cameras(cams: list) -> Camera:
+    """Stack cameras with identical static fields into one batched Camera
+    (every tensor gains a leading [S] axis).  The host poses stack too when
+    every camera has one."""
+    first = cams[0]
+    for c in cams[1:]:
+        if (c.width, c.height, c.near, c.far) != (first.width, first.height,
+                                                  first.near, first.far):
+            raise ValueError('stack_cameras requires identical static fields')
+    host = None
+    if all(c.host_pose is not None for c in cams):
+        host = tuple(np.stack([c.host_pose[i] for c in cams]) for i in (0, 1))
+    return Camera(**{f: torch.stack([getattr(c, f) for c in cams])
+                     for f in _TENSOR_FIELDS},
+                  width=first.width, height=first.height, near=first.near,
+                  far=first.far, host_pose=host)
+
+
+def camera_at(cams: Camera, i) -> Camera:
+    """Camera ``i`` (an int, or an index tensor for a sub-stack) of a
+    stacked Camera."""
+    host = cams.host_pose
+    if host is not None:
+        idx = i.cpu().numpy() if isinstance(i, torch.Tensor) else i
+        host = (host[0][idx], host[1][idx])
+    return dataclasses.replace(
+        cams, **{f: getattr(cams, f)[i] for f in _TENSOR_FIELDS},
+        host_pose=host)
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -43,10 +88,15 @@ def make_camera(position, quat, fov_x_deg: float, width: int, height: int,
                 device=None) -> Camera:
     fov_x = _f32(fov_x_deg) * _f32(math.pi / 180.0)    # deg2rad in float32
     fx = (width / 2.0) / torch.tan(fov_x / 2.0)
-    return Camera(position=_f32(position, device), quat=_f32(quat, device),
+    p, q = _f32(position), _f32(quat)
+    host = None
+    if p.device.type == 'cpu' and q.device.type == 'cpu':
+        host = (p.numpy().copy(), q.numpy().copy())
+    return Camera(position=p.to(device), quat=q.to(device),
                   fx=fx.to(device), fy=fx.clone().to(device),
                   cx=_f32(width / 2.0, device), cy=_f32(height / 2.0, device),
-                  width=width, height=height, near=near, far=far)
+                  width=width, height=height, near=near, far=far,
+                  host_pose=host)
 
 
 def expand_viewport(cam: Camera, margin_px: int) -> Camera:

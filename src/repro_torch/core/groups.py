@@ -36,6 +36,18 @@ def ungroup(x: torch.Tensor, tiles_x: int, tiles_y: int,
     return x.reshape(gy * gx * gt * gt, p, *rest)
 
 
+def regroup_slots(x: torch.Tensor, tiles_x: int, tiles_y: int,
+                  group_tiles: int) -> torch.Tensor:
+    """``regroup`` of every slot: [S, T, P, ...] -> [S, G, B, ...]."""
+    return torch.stack([regroup(xi, tiles_x, tiles_y, group_tiles) for xi in x])
+
+
+def ungroup_slots(x: torch.Tensor, tiles_x: int, tiles_y: int,
+                  group_tiles: int) -> torch.Tensor:
+    """``ungroup`` of every slot: [S, G, B, ...] -> [S, T, P, ...]."""
+    return torch.stack([ungroup(xi, tiles_x, tiles_y, group_tiles) for xi in x])
+
+
 def num_groups(width: int, height: int, group_tiles: int) -> int:
     tx, ty = tile_grid(width, height)
     gx, gy, _ = group_dims(tx, ty, group_tiles)

@@ -23,23 +23,31 @@ Projection/Sorting, once per sharing window) and ``shade_phase`` (prep +
 rasterization + radiance cache, every frame).  ``render_step`` runs the
 sort when ``frame_idx % window == 0``.  Functions return new state and
 leave their inputs untouched.
+
+The multi-viewer serving tick (``repro_torch.serve.stepper``) holds the
+same two classes in a scene-major and a slot-major form (``init_fleet``):
+S = C * V slots over C scenes, slot i in scene i // V.  It schedules the
+sorts itself and advances every slot through ``batched_shade_phase``,
+whose cache stages run scene-major, so the viewers of a scene probe and
+fill its one cache in (slot, pixel) order.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import radiance_cache as rc
-from .camera import Camera
+from .camera import Camera, camera_at, stack_cameras
 from .gaussians import GaussianScene
-from .groups import num_groups, regroup, ungroup
+from .groups import num_groups, regroup, regroup_slots, ungroup, ungroup_slots
 from .projection import project
 from .rasterize import RasterAux, assemble_image, rasterize_tiles
-from .s2 import (SortShared, predict_window_pose,
-                                 shared_features, speculative_sort)
+from .s2 import (SortShared, empty_sort_shared, predict_window_pose,
+                 shared_features, speculative_sort)
 from .sorting import sort_scene
-from .tiling import gather_tile_features, tile_grid
+from .tiling import TileFeatures, gather_tile_features, tile_grid
 from ..device import check_on, resolve_device
 
 BACKENDS = ('reference', 'kernel')
@@ -147,6 +155,10 @@ class ViewerPrivate:
     cell_id   : pose-cell key of the sort entry this viewer consumes (-1
                 before the first sort)
     pool_idx  : index into its scene's ``SceneShared.pool``
+
+    The slot-major form (``init_fleet``) holds S viewers: ``prev_cam`` is a
+    stacked [S] camera and the three counters are [S] int64 numpy arrays,
+    host values that the scheduler reads without a device sync.
     """
 
     prev_cam: Camera
@@ -165,6 +177,11 @@ class SceneShared:
     pool_refs : live viewers referencing each entry
     pool_tick : frame of each entry's last speculative sort (-window before
                 any sort)
+
+    The scene-major form (``init_fleet``) holds C scenes: ``cache`` leaves
+    are [C, G, ...], ``pool`` is C tuples of entries (an entry not sorted
+    yet is ``empty_sort_shared``), and ``pool_cell``/``pool_refs``/
+    ``pool_tick`` are [C, P] int64 numpy arrays kept by the host scheduler.
     """
 
     cache: rc.CacheState
@@ -338,6 +355,260 @@ def render_step(scene: GaussianScene, state: ViewerState, cam: Camera,
         shared, private, image, stats = shade_phase(
             scene, shared, private, cam, cfg, sorted_flag=sorted_flag)
     return ViewerState(scene_shared=shared, viewer=private), image, stats
+
+
+# ---------------------------------------------------------------------------
+# The multi-viewer serving forms
+# ---------------------------------------------------------------------------
+
+def init_fleet(scene: GaussianScene, cfg: LuminaConfig, cam0: Camera,
+               slots: int, viewers_per_scene: int = 1,
+               pool_size: int | None = None):
+    """Cold-start serving state: ``slots`` viewers over ``slots //
+    viewers_per_scene`` scenes.  Returns ``(SceneShared`` in scene-major
+    form, ``ViewerPrivate`` in slot-major form).  ``pool_size`` defaults to
+    ``viewers_per_scene``, the worst case of every viewer in its own pose
+    cell.  Every pool entry starts as one shared ``empty_sort_shared``."""
+    v = viewers_per_scene
+    if slots % v:
+        raise ValueError(f'slots ({slots}) must be a multiple of '
+                         f'viewers_per_scene ({v})')
+    c = slots // v
+    p = v if pool_size is None else pool_size
+    empty = empty_sort_shared(scene, cam0, margin=cfg.margin,
+                              capacity=cfg.capacity)
+    shared = SceneShared(
+        cache=rc.init_caches(c, num_groups(cam0.width, cam0.height,
+                                           cfg.group_tiles),
+                             cfg.cache, device=scene.device),
+        pool=tuple((empty,) * p for _ in range(c)),
+        pool_cell=np.full((c, p), -1, np.int64),
+        pool_refs=np.zeros((c, p), np.int64),
+        pool_tick=np.full((c, p), -cfg.window, np.int64))
+    priv = ViewerPrivate(prev_cam=stack_cameras([cam0] * slots),
+                         frame_idx=np.zeros((slots,), np.int64),
+                         cell_id=np.full((slots,), -1, np.int64),
+                         pool_idx=np.zeros((slots,), np.int64))
+    return shared, priv
+
+
+def viewer_at(priv: ViewerPrivate, i: int) -> ViewerPrivate:
+    """Slot ``i`` of a slot-major ``ViewerPrivate`` in single-viewer form."""
+    return ViewerPrivate(prev_cam=camera_at(priv.prev_cam, i),
+                         frame_idx=int(priv.frame_idx[i]),
+                         cell_id=int(priv.cell_id[i]),
+                         pool_idx=int(priv.pool_idx[i]))
+
+
+def privates_at(priv: ViewerPrivate, slots) -> ViewerPrivate:
+    """The slot-major ``ViewerPrivate`` of the listed slots (a copy)."""
+    return ViewerPrivate(prev_cam=camera_at(priv.prev_cam,
+                                            torch.as_tensor(slots)),
+                         frame_idx=priv.frame_idx[slots],
+                         cell_id=priv.cell_id[slots],
+                         pool_idx=priv.pool_idx[slots])
+
+
+def scene_of_slot(slots: int, viewers_per_scene: int) -> np.ndarray:
+    """Static slot -> scene map: slot ``i`` serves scene ``i // V``."""
+    return np.arange(slots) // viewers_per_scene
+
+
+def gather_sort_entries(shared: SceneShared, priv: ViewerPrivate,
+                        viewers_per_scene: int = 1) -> list:
+    """Each slot's ``SortShared``: ``pool[scene_of(slot)][pool_idx[slot]]``."""
+    c_of = scene_of_slot(len(priv.pool_idx), viewers_per_scene)
+    return [shared.pool[c][p] for c, p in zip(c_of, priv.pool_idx)]
+
+
+def batched_sort_phase(scene: GaussianScene, privates: ViewerPrivate,
+                       cams: Camera, cfg: LuminaConfig) -> list:
+    """``sort_entry`` for each slot of a (small) slot-major cohort: the
+    entries, in cohort order.  Where they land is the scheduler's call."""
+    return [sort_entry(scene, viewer_at(privates, i), camera_at(cams, i), cfg)
+            for i in range(len(privates.frame_idx))]
+
+
+def batched_render_step(scene: GaussianScene, states: list, cams: Camera,
+                        cfg: LuminaConfig):
+    """``render_step`` of each slot (the parity oracle: every lane keeps its
+    own sort cadence).  ``states`` is a list of ``ViewerState``, ``cams`` a
+    stacked camera.  Returns (states, images [S, H, W, 3], per-slot
+    ``FrameStats`` with [S] leaves)."""
+    outs = [render_step(scene, st, camera_at(cams, i), cfg)
+            for i, st in enumerate(states)]
+    stats = FrameStats(*(torch.stack([torch.as_tensor(getattr(o[2], f))
+                                      for o in outs])
+                         for f in ('hit_rate', 'sig_frac', 'mean_iterated',
+                                   'saved_frac', 'sorted_this_frame')))
+    return [o[0] for o in outs], torch.stack([o[1] for o in outs]), stats
+
+
+def stats_at(stats: FrameStats, i: int) -> FrameStats:
+    """Slot ``i`` of per-slot ``FrameStats``."""
+    return FrameStats(*(x[i] for x in (stats.hit_rate, stats.sig_frac,
+                                       stats.mean_iterated, stats.saved_frac,
+                                       stats.sorted_this_frame)))
+
+
+def _stats_slots(aux: RasterAux, hit, saved_frac, sorted_flags) -> FrameStats:
+    """``_stats`` of each slot: [S] leaves."""
+    tot_iter = torch.clamp(aux.n_iterated.sum(dim=(1, 2)), min=1)
+    return FrameStats(
+        hit_rate=hit.float().mean(dim=(1, 2)),
+        sig_frac=aux.n_significant.sum(dim=(1, 2)) / tot_iter,
+        mean_iterated=aux.n_iterated.float().mean(dim=(1, 2)),
+        saved_frac=saved_frac.float(),
+        sorted_this_frame=sorted_flags.float())
+
+
+def _stack_features(feats: list) -> TileFeatures:
+    return TileFeatures(*(torch.stack([getattr(f, name) for f in feats])
+                          for name in ('mean2d', 'conic', 'color', 'opacity',
+                                       'ids')))
+
+
+def batched_prep_features(scene: GaussianScene, shared: SceneShared,
+                          priv: ViewerPrivate, cams: Camera,
+                          cfg: LuminaConfig,
+                          viewers_per_scene: int = 1) -> TileFeatures:
+    """Per-slot shade prep (``_prep_features``, one call per slot):
+    [S, T, K, ...] feature stacks."""
+    sorts = gather_sort_entries(shared, priv, viewers_per_scene)
+    return _stack_features([_prep_features(scene, so, camera_at(cams, i),
+                                           cfg)[0]
+                            for i, so in enumerate(sorts)])
+
+
+def trim_features_slots(feats_b: TileFeatures, tiles_x: int) -> TileFeatures:
+    """``ops.trim_features`` over [S, T, K, ...] feature stacks (the same
+    per-row math as the per-slot trim)."""
+    from ..kernels import ops
+    s, t = feats_b.ids.shape[:2]
+    flat = ops.trim_features(TileFeatures(*(
+        x.reshape(s * t, *x.shape[2:]) for x in (
+            feats_b.mean2d, feats_b.conic, feats_b.color, feats_b.opacity,
+            feats_b.ids))), tiles_x, t_img=t)
+    return TileFeatures(*(x.reshape(s, t, *x.shape[1:]) for x in (
+        flat.mean2d, flat.conic, flat.color, flat.opacity, flat.ids)))
+
+
+def batched_shade_phase(scene: GaussianScene, shared: SceneShared,
+                        priv: ViewerPrivate, cams: Camera,
+                        sorted_flags: torch.Tensor, active: torch.Tensor,
+                        cfg: LuminaConfig, viewers_per_scene: int = 1):
+    """The per-tick shade of all serving slots over scene-shared state.
+
+    ``shared`` is scene-major (C = S // viewers_per_scene scenes), ``priv``
+    and ``cams`` slot-major; ``sorted_flags`` [S] float32 and ``active`` [S]
+    bool are per-slot values from the scheduler, on the scene's device.
+    Returns ``(new_shared, new_priv, images [S, H, W, 3], FrameStats with
+    [S] leaves)``.
+
+    The cache stages run scene-major over the flattened C * G groups: every
+    viewer of a scene probes and fills its one cache, conflicts resolving in
+    (slot, pixel) order, and idle lanes (``active`` False) neither touch the
+    LRU state nor insert.  With ``viewers_per_scene == 1`` every slot owns
+    a private cache and each lane equals ``shade_phase``.  The kernel
+    backend runs the slot-batched kernels (``ops.rasterize_with_rc_slots``),
+    whose chunk counts are fleet totals: ``saved_frac`` there is the
+    fleet's measured saving, the same value for every slot.
+    """
+    if cfg.backend == 'kernel':
+        return _batched_shade_kernel(scene, shared, priv, cams, sorted_flags,
+                                     active, cfg, viewers_per_scene)
+    s = sorted_flags.shape[0]
+    v = viewers_per_scene
+    c = s // v
+    tiles_x, tiles_y = tile_grid(cams.width, cams.height)
+    sorts = gather_sort_entries(shared, priv, v)
+    outs = []
+    for i, sort in enumerate(sorts):
+        feats, lists = _prep_features(scene, sort, camera_at(cams, i), cfg)
+        outs.append(rasterize_tiles(feats, lists.tiles_x,
+                                    k_record=cfg.k_record, bg=cfg.bg,
+                                    live=active[i]))
+    colors = torch.stack([o[0] for o in outs])
+    aux = RasterAux(*(torch.stack([getattr(o[1], f) for o in outs])
+                      for f in ('alpha_record', 'n_significant', 'n_iterated',
+                                'iter_at_k', 'transmittance')))
+
+    if cfg.use_rc:
+        gt = cfg.group_tiles
+        ids_v = rc.viewer_major(
+            regroup_slots(aux.alpha_record, tiles_x, tiles_y, gt), v)
+        raw_v = rc.viewer_major(regroup_slots(colors, tiles_x, tiles_y, gt), v)
+        live_v = rc.viewer_major(active[:, None].expand(s, ids_v.shape[1] // c),
+                                 v)
+        hit_v, val_v, _, _, cache_f = rc.lookup_all_groups_multi(
+            rc.flatten_scenes(shared.cache), ids_v, cfg.cache, live=live_v)
+        final_v = torch.where(hit_v[..., None], val_v, raw_v)
+        cache_f = rc.insert_all_groups_multi(
+            cache_f, ids_v, raw_v,
+            ~hit_v & rc.viewer_live(live_v, hit_v.shape), cfg.cache)
+        caches = rc.split_scenes(cache_f, c)
+        hit = ungroup_slots(rc.slot_order(hit_v, c)[..., None], tiles_x,
+                            tiles_y, gt)[..., 0]
+        colors = ungroup_slots(rc.slot_order(final_v, c), tiles_x, tiles_y,
+                               gt)
+        # the modeled per-pixel saving of rc_apply, per slot
+        saved = torch.where(hit, torch.clamp(aux.n_iterated - aux.iter_at_k,
+                                             min=0), 0)
+        saved_frac = (saved.sum(dim=(1, 2))
+                      / torch.clamp(aux.n_iterated.sum(dim=(1, 2)), min=1))
+    else:
+        caches = shared.cache
+        hit = torch.zeros(aux.n_iterated.shape, dtype=torch.bool,
+                          device=colors.device)
+        saved_frac = torch.zeros((s,), device=colors.device)
+    return _finish_slots(shared, priv, cams, caches, colors, aux, hit,
+                         saved_frac, sorted_flags, tiles_x, tiles_y)
+
+
+def _finish_slots(shared, priv, cams, caches, colors, aux, hit, saved_frac,
+                  sorted_flags, tiles_x, tiles_y):
+    images = torch.stack([assemble_image(cl, tiles_x, tiles_y, cams.width,
+                                         cams.height) for cl in colors])
+    stats = _stats_slots(aux, hit, saved_frac, sorted_flags)
+    new_shared = dataclasses.replace(shared, cache=caches)
+    new_priv = dataclasses.replace(priv, prev_cam=cams,
+                                   frame_idx=priv.frame_idx + 1)
+    return new_shared, new_priv, images, stats
+
+
+def _batched_shade_kernel(scene: GaussianScene, shared: SceneShared,
+                          priv: ViewerPrivate, cams: Camera,
+                          sorted_flags: torch.Tensor, active: torch.Tensor,
+                          cfg: LuminaConfig, viewers_per_scene: int = 1):
+    """Slot-batched kernel shade over scene-shared caches (see
+    ``batched_shade_phase``)."""
+    from ..kernels import ops
+    tiles_x, tiles_y = tile_grid(cams.width, cams.height)
+    s = sorted_flags.shape[0]
+    feats_b = batched_prep_features(scene, shared, priv, cams, cfg,
+                                    viewers_per_scene)
+    feats_b = trim_features_slots(feats_b, tiles_x)
+    if cfg.use_rc:
+        colors, caches, aux, kst = ops.rasterize_with_rc_slots(
+            feats_b, tiles_x, tiles_y, shared.cache, cfg.cache,
+            cfg.group_tiles, viewers_per_scene=viewers_per_scene,
+            k_record=cfg.k_record, chunk=cfg.shade_chunk, bg=cfg.bg,
+            live=active, compact=cfg.rc_compact)
+        hit = kst.hit
+        # fleet-coupled chunk accounting -> the fleet's measured saving
+        saved = 1.0 - ((kst.chunks_prefix + kst.chunks_resume).float()
+                       / torch.clamp(kst.chunks_bound, min=1))
+        saved_b = saved.expand(s)
+    else:
+        colors, aux, _ = ops.rasterize_full_slots(
+            feats_b, tiles_x, k_record=cfg.k_record, chunk=cfg.shade_chunk,
+            bg=cfg.bg, live=active)
+        caches = shared.cache
+        hit = torch.zeros(aux.n_iterated.shape, dtype=torch.bool,
+                          device=colors.device)
+        saved_b = torch.zeros((s,), device=colors.device)
+    return _finish_slots(shared, priv, cams, caches, colors, aux, hit,
+                         saved_b, sorted_flags, tiles_x, tiles_y)
 
 
 class LuminSys:

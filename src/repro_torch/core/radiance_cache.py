@@ -236,3 +236,104 @@ def insert_all_groups(cache: CacheState, ids: torch.Tensor, rgb: torch.Tensor,
     The gate leaves the mask unchanged on finite data."""
     return _insert_groups(cache, ids, rgb,
                           do_insert & torch.isfinite(rgb).all(dim=-1), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Multi-viewer (scene-shared) forms
+# ---------------------------------------------------------------------------
+# One cache serves every viewer of a scene.  The batched forms flatten the
+# viewer axis *slot-major* into each group's record batch, so the probes and
+# inserts evolve the cache exactly as one sequential stream issuing them in
+# (slot, pixel) order would: the lowest slot, then the lowest pixel, wins an
+# insert conflict, and duplicate records across viewers land once through
+# the insert rounds' re-probe.  With V == 1 the flatten is the identity.
+#
+# The caches of C scenes are C * G independent groups: ``flatten_scenes``
+# views [C, G, ...] leaves as [C * G, ...], and ``viewer_major`` lays the
+# records of S = C * V slots out as [V, C * G, ...], so one call probes or
+# fills every scene (the JAX package maps the single-scene forms over C).
+
+def slot_major(x: torch.Tensor) -> torch.Tensor:
+    """[V, G, B, ...] per-viewer grouped records -> [G, V*B, ...] one
+    slot-major batch per group (viewer 0's pixels first)."""
+    v, g, b = x.shape[:3]
+    return torch.movedim(x, 0, 1).reshape(g, v * b, *x.shape[3:])
+
+
+def slot_split(x: torch.Tensor, v: int) -> torch.Tensor:
+    """Inverse of ``slot_major``: [G, V*B, ...] -> [V, G, B, ...]."""
+    g, vb = x.shape[:2]
+    return torch.movedim(x.reshape(g, v, vb // v, *x.shape[2:]), 1, 0)
+
+
+def viewer_major(x: torch.Tensor, v: int) -> torch.Tensor:
+    """[S, G, ...] per-slot grouped records of S = C * V slots (slot i in
+    scene i // V) -> [V, C * G, ...], the viewers of each scene over the
+    groups of the flattened scene caches."""
+    s, g = x.shape[:2]
+    x = x.reshape(s // v, v, g, *x.shape[2:])
+    return torch.movedim(x, 1, 0).reshape(v, (s // v) * g, *x.shape[3:])
+
+
+def slot_order(x: torch.Tensor, num_scenes: int) -> torch.Tensor:
+    """Inverse of ``viewer_major``: [V, C * G, ...] -> [S, G, ...]."""
+    v, cg = x.shape[:2]
+    x = x.reshape(v, num_scenes, cg // num_scenes, *x.shape[2:])
+    return torch.movedim(x, 0, 1).reshape(num_scenes * v, cg // num_scenes,
+                                          *x.shape[3:])
+
+
+def viewer_live(live: torch.Tensor, shape) -> torch.Tensor:
+    """A per-viewer ([V]) or per-viewer-group ([V, G]) live mask broadcast
+    to the [V, G, B] record shape."""
+    live = torch.as_tensor(live, dtype=torch.bool)
+    return torch.broadcast_to(live.reshape(live.shape + (1,) * (3 - live.ndim)),
+                              tuple(shape))
+
+
+def lookup_all_groups_multi(cache: CacheState, ids: torch.Tensor,
+                            cfg: CacheConfig,
+                            live: torch.Tensor | None = None):
+    """Shared-cache lookup for V viewers: ids [V, G, B, k], live [V] (or
+    [V, G]) bool.  Returns (hit [V,G,B], val [V,G,B,3], sidx, way, new
+    cache).  LRU touches land in (slot, pixel) order; dead viewers probe
+    without touching."""
+    v = ids.shape[0]
+    live_f = None
+    if live is not None:
+        live_f = slot_major(viewer_live(
+            torch.as_tensor(live, device=ids.device), ids.shape[:3]))
+    hit, val, sidx, way, cache = lookup_all_groups(cache, slot_major(ids),
+                                                   cfg, live=live_f)
+    return (slot_split(hit, v), slot_split(val, v), slot_split(sidx, v),
+            slot_split(way, v), cache)
+
+
+def insert_all_groups_multi(cache: CacheState, ids: torch.Tensor,
+                            rgb: torch.Tensor, do_insert: torch.Tensor,
+                            cfg: CacheConfig) -> CacheState:
+    """Shared-cache insert for V viewers: ids [V, G, B, k], rgb [V, G, B, 3],
+    do_insert [V, G, B].  Conflicts resolve by (slot, pixel) order;
+    duplicate tags across viewers land once."""
+    return insert_all_groups(cache, slot_major(ids), slot_major(rgb),
+                             slot_major(do_insert), cfg)
+
+
+def init_caches(num_scenes: int, num_groups: int, cfg: CacheConfig,
+                device=None) -> CacheState:
+    """Cold caches for ``num_scenes`` scenes: leaves [C, G, ...]."""
+    return split_scenes(init_cache(num_scenes * num_groups, cfg, device),
+                        num_scenes)
+
+
+def flatten_scenes(cache: CacheState) -> CacheState:
+    """[C, G, ...] scene caches as one [C * G, ...] cache of independent
+    groups (views, no copy)."""
+    return CacheState(*(x.flatten(0, 1) for x in
+                        (cache.tags, cache.values, cache.age, cache.clock)))
+
+
+def split_scenes(cache: CacheState, num_scenes: int) -> CacheState:
+    """Inverse of ``flatten_scenes``."""
+    return CacheState(*(x.unflatten(0, (num_scenes, -1)) for x in
+                        (cache.tags, cache.values, cache.age, cache.clock)))

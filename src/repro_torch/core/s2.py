@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from .camera import Camera, expand_viewport, slerp
 from .gaussians import GaussianScene
 from .projection import Projected, project, reproject_geometry
 from .sorting import sort_scene
-from .tiling import TILE, TileLists, gather_tile_features
+from .tiling import TILE, TileLists, gather_tile_features, tile_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,31 @@ def speculative_sort(scene: GaussianScene, pred_cam: Camera, *,
     lists = sort_scene(proj, cam_exp.width, cam_exp.height, capacity,
                        method=method, radius_margin=float(margin),
                        max_tiles_per_gaussian=max_tiles_per_gaussian)
+    return SortShared(proj=proj, lists=lists, margin_tiles=margin_tiles,
+                      render_tiles_x=rtx, render_tiles_y=rty)
+
+
+def empty_sort_shared(scene: GaussianScene, cam: Camera, *, margin: int,
+                      capacity: int) -> SortShared:
+    """A zero-filled ``SortShared`` with the structure ``speculative_sort``
+    gives for (scene, cam): what a serving pool entry holds before its
+    first sort.  Its projection is invalid, so the prep of a lane that
+    rides it (an idle lane of an active scene) yields zero-opacity
+    features, as the JAX package's zero-filled entry does."""
+    rtx, rty = tile_grid(cam.width, cam.height)
+    margin_tiles = -(-margin // TILE) if margin > 0 else 0
+    tx, ty = tile_grid(cam.width + 2 * margin_tiles * TILE,
+                       cam.height + 2 * margin_tiles * TILE)
+    n, dev = scene.means.shape[0], scene.means.device
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    proj = Projected(mean2d=zeros(n, 2), conic=zeros(n, 3), radius=zeros(n),
+                     depth=zeros(n), color=zeros(n, 3), opacity=zeros(n),
+                     valid=zeros(n, dtype=torch.bool))
+    lists = TileLists(zeros(tx * ty, capacity, dtype=torch.int32),
+                      zeros(tx * ty, dtype=torch.int32), tx, ty)
     return SortShared(proj=proj, lists=lists, margin_tiles=margin_tiles,
                       render_tiles_x=rtx, render_tiles_y=rty)
 

@@ -32,9 +32,11 @@ def camera_from_numpy(position, quat, fx, fy, cx, cy, width: int, height: int,
                       near: float = 0.05, far: float = 100.0, *,
                       device) -> Camera:
     f32 = lambda x: tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+    host = (np.array(position, np.float32), np.array(quat, np.float32))
     return Camera(position=f32(position), quat=f32(quat), fx=f32(fx),
                   fy=f32(fy), cx=f32(cx), cy=f32(cy), width=int(width),
-                  height=int(height), near=float(near), far=float(far))
+                  height=int(height), near=float(near), far=float(far),
+                  host_pose=host)
 
 
 def cache_from_numpy(tags, values, age, clock, *, device) -> CacheState:

@@ -6,7 +6,8 @@ the CPU; on CUDA tensors it launches the kernel or raises.
 it launches its kernel and nowhere else.
 """
 
-LAUNCHES = {'rasterize': 0, 'rasterize_compact': 0, 'rc_lookup': 0}
+LAUNCHES = {'rasterize': 0, 'rasterize_slots': 0, 'rasterize_compact': 0,
+            'rc_lookup': 0}
 
 
 def reset_launches() -> None:

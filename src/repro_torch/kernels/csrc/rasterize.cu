@@ -1,8 +1,10 @@
 // Tile rasterizer for Hopper (sm_90a): full, prefix (stop-at-k) and resume
-// modes, plus the miss-compacted resume.
+// modes, the slot-batched form of the serving tick, and the miss-compacted
+// resume.
 //
 // Replaces the TPU kernels in src/repro/kernels/rasterize.py:
 //   * _kernel          (called through rasterize_pallas)
+//   * _kernel_slots    (called through rasterize_slots_pallas)
 //   * _kernel_compact  (called through rasterize_compact_pallas)
 //
 // What bounds it on an H100: memory, on the main path's data.  A Gaussian's
@@ -31,6 +33,30 @@
 //     tile and chunk cap, and reads its source tile's features from device
 //     memory directly (lanes are packed source-tile-major, so neighbouring
 //     lanes mostly read the same addresses).
+//
+// The slot-batched form (_kernel_slots) walks one tile of all S serving
+// slots.  On the TPU one program holds every slot's lanes of a tile, and its
+// loop runs until no lane of any slot remains, so the trip count it reports
+// (chunks [T, 1]) is shared by the slots; RCStats.chunks_prefix scales it by
+// S and FrameStats.saved_frac reads it.  Here the slots are decoupled: grid
+// (T, S), one block per (tile, slot), the same rasterize_kernel body, so the
+// per-pixel operation order is phase A's by construction.  The shared count
+// is recovered exactly, without coupling the blocks:
+//   * every lane starts at chunk 0 (the slot wrappers take no start_iter:
+//     phase A and the full pass begin at the front), so the TPU loop and
+//     each block start together, or a block with no live lane stops at once;
+//   * a lane's "remaining" test (live, trans > 1e-4, chunk < ncap and, in
+//     prefix mode, count < k) is monotone in the chunk index: trans only
+//     falls, the count only rises, and past a slot's own ncap every id is -1
+//     (ncap is one past the last valid id), so nothing can revive it;
+//   * so the chunks a finished slot rides along on the TPU are no-ops for
+//     its lanes, each lane's state equals its own block's, and the shared
+//     count is the largest per-block count of the tile: each block does
+//     atomicMax of its count into chunks[t], which the wrapper zero-fills.
+//     An integer max does not depend on the order the atomics run in.
+// Bound: the same as phase A, bytes (chip_smoke.py's bound counts the
+// feature chunks the walked (slot, tile) pairs read and every lane's output
+// state).
 //
 // Integer outputs (records, counts, chunks) depend on float comparisons, so
 // the arithmetic is written with explicit round-to-nearest intrinsics (no
@@ -154,23 +180,26 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
   int* s_id = reinterpret_cast<int*>(s_op + chunk);
   __shared__ int scratch[kPix / 32];
 
+  // grid (T, S): tile t of slot blockIdx.y, row = slot * T + t of the
+  // [S * T, ...] operands (S = 1 outside the serving tick)
   const int t = blockIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + t;
   const int p = threadIdx.x;
-  const size_t q = static_cast<size_t>(t) * kPix + p;
+  const size_t q = row * kPix + p;
   const float px = static_cast<float>((t % tiles_x) * kTile + (p % kTile)) + 0.5f;
   const float py = static_cast<float>((t / tiles_x) * kTile + (p / kTile)) + 0.5f;
   const bool live = live_in[q] != 0;
-  const int start = start_iter[q];
+  const int start = start_iter == nullptr ? 0 : start_iter[q];
   const bool stop = stop_at_k != 0;
 
   PixelState s;
   load_state(s, q, acc0, trans0, rec0, cnt0, rec, k_record, k_total);
   int* my_rec = rec + q * k_record;
 
-  const int nc = min(k_total / chunk, ncap[t]);
+  const int nc = min(k_total / chunk, ncap[row]);
   int c = min(block_min(live ? start : k_total, scratch) / chunk, nc);
   int nchunks = 0;
-  const size_t tile_base = static_cast<size_t>(t) * k_total;
+  const size_t tile_base = row * k_total;
   while (true) {
     const bool done = !live || (s.trans <= kTransEps) ||
                       (stop && s.cnt >= k_record);
@@ -204,7 +233,8 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
     ++nchunks;
   }
   store_state(s, q, acc, trans, cnt, nsig, niter, itk);
-  if (p == 0) chunks[t] = nchunks;
+  // chunks is zeroed by the wrapper; with one slot the max is the count
+  if (p == 0 && nchunks > 0) atomicMax(chunks + t, nchunks);
 }
 
 __global__ void __launch_bounds__(kPix) rasterize_compact_kernel(
@@ -260,18 +290,14 @@ __global__ void __launch_bounds__(kPix) rasterize_compact_kernel(
   if (p == 0) chunks[t] = nchunks;
 }
 
-}  // namespace
-
-extern "C" {
-
-int rasterize_launch(
+int launch_tiles(
     const void* mean2d, const void* conic, const void* color,
     const void* opacity, const void* ids, const void* acc0,
     const void* trans0, const void* rec0, const void* cnt0,
     const void* start_iter, const void* live, const void* ncap, void* acc,
     void* trans, void* rec, void* cnt, void* nsig, void* niter, void* itk,
-    void* chunks, int num_tiles, int k_total, int tiles_x, int k_record,
-    int chunk, int stop_at_k, void* stream) {
+    void* chunks, int num_tiles, int num_slots, int k_total, int tiles_x,
+    int k_record, int chunk, int stop_at_k, void* stream) {
   const size_t smem = static_cast<size_t>(chunk) * 10 * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -279,7 +305,8 @@ int rasterize_launch(
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  rasterize_kernel<<<num_tiles, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(num_tiles, num_slots);
+  rasterize_kernel<<<grid, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mean2d), static_cast<const float*>(conic),
       static_cast<const float*>(color), static_cast<const float*>(opacity),
       static_cast<const int*>(ids), static_cast<const float*>(acc0),
@@ -291,6 +318,42 @@ int rasterize_launch(
       static_cast<int*>(niter), static_cast<int*>(itk),
       static_cast<int*>(chunks), k_total, tiles_x, k_record, chunk, stop_at_k);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both tile walks publish their trip count by atomicMax: chunks [T] must be
+// zero on entry.
+int rasterize_launch(
+    const void* mean2d, const void* conic, const void* color,
+    const void* opacity, const void* ids, const void* acc0,
+    const void* trans0, const void* rec0, const void* cnt0,
+    const void* start_iter, const void* live, const void* ncap, void* acc,
+    void* trans, void* rec, void* cnt, void* nsig, void* niter, void* itk,
+    void* chunks, int num_tiles, int k_total, int tiles_x, int k_record,
+    int chunk, int stop_at_k, void* stream) {
+  return launch_tiles(mean2d, conic, color, opacity, ids, acc0, trans0, rec0,
+                      cnt0, start_iter, live, ncap, acc, trans, rec, cnt,
+                      nsig, niter, itk, chunks, num_tiles, 1, k_total,
+                      tiles_x, k_record, chunk, stop_at_k, stream);
+}
+
+// Slot-batched walk: operands [S, T, ...]; every lane starts at chunk 0;
+// chunks [T] receives the trip count shared by the slots (see above).
+int rasterize_slots_launch(
+    const void* mean2d, const void* conic, const void* color,
+    const void* opacity, const void* ids, const void* acc0,
+    const void* trans0, const void* rec0, const void* cnt0,
+    const void* live, const void* ncap, void* acc, void* trans, void* rec,
+    void* cnt, void* nsig, void* niter, void* itk, void* chunks,
+    int num_tiles, int num_slots, int k_total, int tiles_x, int k_record,
+    int chunk, int stop_at_k, void* stream) {
+  return launch_tiles(mean2d, conic, color, opacity, ids, acc0, trans0, rec0,
+                      cnt0, nullptr, live, ncap, acc, trans, rec, cnt, nsig,
+                      niter, itk, chunks, num_tiles, num_slots, k_total,
+                      tiles_x, k_record, chunk, stop_at_k, stream);
 }
 
 int rasterize_compact_launch(

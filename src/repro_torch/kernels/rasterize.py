@@ -15,7 +15,10 @@ Modes (see ``ops``):
               per-pixel ``start_iter`` and ``live`` (phase B).
 ``rasterize_compact`` is the miss-compacted resume: the P lanes of a block
 come from different source tiles, each with its own pixel center, source
-tile and chunk cap.
+tile and chunk cap.  ``rasterize_slots`` is the full or prefix pass of the
+multi-viewer serving tick: one tile of all S slots, whose reported trip
+count is shared by the slots (the loop runs until no lane of any slot
+remains).
 
 The kernel's record count counts every contribution (``rec_cnt`` may pass
 k); only the first k ids are recorded.
@@ -31,12 +34,14 @@ from ..core.rasterize import P, pixel_centers
 from . import LAUNCHES, build
 
 _SIGNATURES = {'rasterize_launch': (20, 6, 1),
+               'rasterize_slots_launch': (19, 7, 1),
                'rasterize_compact_launch': (23, 4, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
 class RasterState:
-    """Per-pixel kernel state: inputs (phase init) and outputs alike."""
+    """Per-pixel kernel state: inputs (phase init) and outputs alike.  The
+    slot-batched form has [S, T, P, ...] leaves and the same chunks [T, 1]."""
 
     acc: torch.Tensor        # [T, P, 3]
     trans: torch.Tensor      # [T, P]
@@ -116,8 +121,7 @@ def _walk(feat_at, px, py, state, start, live, c0, cond, *, k_record, chunk,
 
 
 def _init_state(acc0, trans0, rec0, cnt0, k_total):
-    t = trans0.shape[0]
-    zeros = torch.zeros((t, P), dtype=torch.int32, device=trans0.device)
+    zeros = torch.zeros(trans0.shape, dtype=torch.int32, device=trans0.device)
     return [acc0.clone().float(), trans0.clone().float(), rec0.clone(),
             cnt0.clone(), zeros, zeros.clone(), torch.full_like(zeros, k_total)]
 
@@ -178,6 +182,49 @@ def rasterize_compact_plain(mean2d, conic, color, opacity, ids, px, py, src,
     return RasterState(*state, chunks=chunks)
 
 
+def rasterize_slots_plain(mean2d, conic, color, opacity, ids, acc0, trans0,
+                          rec0, cnt0, live, ncap, *, tiles_x: int,
+                          k_record: int = 5, chunk: int = 64,
+                          stop_at_k: bool = False) -> RasterState:
+    """The slot-batched kernel written with tensor ops (same arguments): the
+    S slots' lanes of a tile are one row of S*P lanes, and the row's loop
+    runs while any lane of any slot remains, as on the TPU.  Every lane
+    starts at chunk 0.  Returns [S, T, ...] state and chunks [T, 1], the
+    row's trip count."""
+    s, t, k_total = ids.shape
+    dev = ids.device
+    n = s * P
+
+    def lanes(x):        # [S, T, P, ...] -> [T, S*P, ...]
+        return x.transpose(0, 1).reshape(t, n, *x.shape[3:])
+
+    px, py = pixel_centers(tiles_x, t, dev)
+    px, py = px.repeat(1, s), py.repeat(1, s)
+    live_b = lanes(live) != 0
+    nc_total = k_total // chunk
+    ncap_l = torch.clamp(ncap, max=nc_total).T.repeat_interleave(P, dim=1)
+    start = torch.zeros((t, n), dtype=torch.int32, device=dev)
+    c0 = torch.where(live_b.any(1), 0, nc_total)
+    state = _init_state(lanes(acc0), lanes(trans0), lanes(rec0), lanes(cnt0),
+                        k_total)
+
+    def cond(c):
+        left = live_b & (state[1] > TRANSMITTANCE_EPS) & (c < ncap_l)
+        if stop_at_k:
+            left = left & (state[3] < k_record)
+        return (c < nc_total) & left.any(1)
+
+    def feat_at(rows, pos):     # each slot's feature, repeated over its lanes
+        return tuple(x[:, rows, pos].transpose(0, 1).repeat_interleave(P, dim=1)
+                     for x in (mean2d, conic, color, opacity, ids))
+
+    chunks = _walk(feat_at, px, py, state, start, live_b, c0, cond,
+                   k_record=k_record, chunk=chunk, stop_at_k=stop_at_k)
+    out = [x.reshape(t, s, P, *x.shape[2:]).transpose(0, 1).contiguous()
+           for x in state]
+    return RasterState(*out, chunks=chunks)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -200,7 +247,7 @@ def _outputs(n: int, k_record: int, device) -> list:
             torch.empty((n, P), dtype=f32, device=device),
             torch.empty((n, P, k_record), dtype=i32, device=device),
             *[torch.empty((n, P), dtype=i32, device=device) for _ in range(4)],
-            torch.empty((n, 1), dtype=i32, device=device)]
+            torch.zeros((n, 1), dtype=i32, device=device)]   # atomicMax target
 
 
 def _state_spec(n: int, k_record: int, acc0, trans0, rec0, cnt0,
@@ -258,6 +305,53 @@ def rasterize(mean2d, conic, color, opacity, ids, acc0, trans0, rec0, cnt0,
         build.check(lib, 'rasterize', code, 'rasterize kernel')
         LAUNCHES['rasterize'] += 1
     return RasterState(*out)
+
+
+def rasterize_slots(mean2d, conic, color, opacity, ids, acc0, trans0, rec0,
+                    cnt0, live, ncap, *, tiles_x: int, k_record: int = 5,
+                    chunk: int = 64, stop_at_k: bool = False) -> RasterState:
+    """Rasterize one tile of all S serving slots per tile position.
+
+    Features [S, T, K, ...], state [S, T, P, ...] and ``live`` [S, T, P]
+    int32 as in ``rasterize`` (no ``start_iter``: every lane starts at chunk
+    0); ``ncap`` [S, T] int32.  Returns [S, T, P, ...] state and chunks
+    [T, 1], the trip count shared by the slots of each tile.
+    """
+    s, t, k_total = ids.shape
+    if k_total % chunk:
+        raise ValueError(f'K={k_total} is not a multiple of chunk={chunk}')
+    if ids.device.type == 'cpu':
+        return rasterize_slots_plain(mean2d, conic, color, opacity, ids, acc0,
+                                     trans0, rec0, cnt0, live, ncap,
+                                     tiles_x=tiles_x, k_record=k_record,
+                                     chunk=chunk, stop_at_k=stop_at_k)
+    if ids.device.type != 'cuda':
+        raise ValueError(f'no rasterize_slots kernel for device {ids.device}')
+    f32, i32 = torch.float32, torch.int32
+    _check({'mean2d': (mean2d, f32, (s, t, k_total, 2)),
+            'conic': (conic, f32, (s, t, k_total, 3)),
+            'color': (color, f32, (s, t, k_total, 3)),
+            'opacity': (opacity, f32, (s, t, k_total)),
+            'ids': (ids, i32, (s, t, k_total)),
+            'acc0': (acc0, f32, (s, t, P, 3)), 'trans0': (trans0, f32, (s, t, P)),
+            'rec0': (rec0, i32, (s, t, P, k_record)),
+            'cnt0': (cnt0, i32, (s, t, P)), 'live': (live, i32, (s, t, P)),
+            'ncap': (ncap, i32, (s, t))}, ids.device)
+    out = [x.view(s, t, *x.shape[1:]) for x in _outputs(s * t, k_record,
+                                                          ids.device)[:-1]]
+    chunks = torch.zeros((t, 1), dtype=i32, device=ids.device)  # atomicMax target
+    if s * t:
+        lib = build.load('rasterize', _SIGNATURES)
+        with torch.cuda.device(ids.device):
+            code = lib.rasterize_slots_launch(
+                *[x.data_ptr() for x in (mean2d, conic, color, opacity, ids,
+                                         acc0, trans0, rec0, cnt0, live, ncap)],
+                *[x.data_ptr() for x in out], chunks.data_ptr(),
+                t, s, k_total, tiles_x, k_record, chunk, int(stop_at_k),
+                torch.cuda.current_stream(ids.device).cuda_stream)
+        build.check(lib, 'rasterize', code, 'rasterize_slots kernel')
+        LAUNCHES['rasterize_slots'] += 1
+    return RasterState(*out, chunks=chunks)
 
 
 def rasterize_compact(mean2d, conic, color, opacity, ids, px, py, src, ncap,

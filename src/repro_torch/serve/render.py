@@ -1,0 +1,236 @@
+"""Multi-viewer render-serving entry point.
+
+Serves N concurrent camera streams (staggered arrivals, per-viewer orbit
+trajectories) over one Gaussian scene with a fixed number of render slots,
+then prints per-session telemetry:
+
+    PYTHONPATH=src python -m repro_torch.serve.render --viewers 4 --frames 24
+    PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
+        --viewers 2 --frames 3 --width 64 --gaussians 600
+
+Each scene's viewers orbit it from the scene's own start angle; the batched
+stepper advances all slots through one slot-batched shade per tick, and
+speculative sorts run only for the tick's due pose-cell groups (see
+``repro_torch.serve.stepper``).  It runs on the card unless ``--device cpu``
+is given.
+"""
+from __future__ import annotations
+
+import argparse
+
+from ..core.pipeline import LuminaConfig
+from ..data.scenes import structured_scene
+from ..data.trajectory import orbit_trajectory
+from ..device import resolve_device
+from . import traffic
+from .session import SessionManager, ViewerSession
+from .stepper import BatchedStepper, SequentialStepper
+from .telemetry import aggregate, format_table, tick_rollup
+
+
+def build_sessions(viewers: int, frames: int, *, width: int = 96,
+                   stagger: int = 2, fps: float = 90.0,
+                   viewers_per_scene: int = 1, arrivals=None, paces=None,
+                   device=None) -> list[ViewerSession]:
+    """One session per viewer, grouped into scenes of ``viewers_per_scene``.
+
+    Scenes get distinct orbit start angles; the viewers of one scene ride
+    the same trajectory (co-watching), so they land in one pose cell.
+    ``arrivals``/``paces`` override the default ``sid * stagger`` arrival
+    ticks and every-tick pacing (pass a ``traffic`` trace's fields).  The
+    cameras lie on ``device`` (the card by default).
+    """
+    sessions = []
+    n_scenes = -(-viewers // viewers_per_scene)
+    for sid in range(viewers):
+        scene_id = sid // viewers_per_scene
+        cams = orbit_trajectory(frames, fps=fps, width=width, height_px=width,
+                                start_deg=360.0 * scene_id / max(n_scenes, 1),
+                                device=device)
+        sessions.append(ViewerSession(
+            sid=sid, cams=cams,
+            arrival_tick=(sid * stagger if arrivals is None
+                          else int(arrivals[sid])),
+            scene_id=scene_id,
+            pace=1 if paces is None else int(paces[sid])))
+    return sessions
+
+
+def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
+          gaussians: int = 1500, window: int = 6, capacity: int = 192,
+          stagger: int = 2, sequential: bool = False, seed: int = 0,
+          backend: str = 'reference', profile_every: int = 0,
+          viewers_per_scene: int = 1, arrivals: str = 'stagger',
+          rate: float = 0.5, burst: int = 4, gap: int = 8, jitter: int = 0,
+          pace: int = 1, pace_jitter: int = 0, driver: str = 'sync',
+          device=None, print_fn=print) -> dict:
+    """Run the serving loop to completion; returns the aggregate rollup.
+
+    ``backend`` selects the shade ('reference' | 'kernel');
+    ``profile_every`` > 0 samples a per-stage shade breakdown every N ticks
+    (kernel backend, batched engine); ``viewers_per_scene`` > 1 groups that
+    many slots per scene so co-scene viewers share one radiance cache and
+    pose-cell sort pool (batched engine only).  ``arrivals`` selects the
+    traffic trace ('stagger' | 'poisson' | 'bursty', seeded by ``seed``);
+    ``driver`` the host loop ('sync', the virtual clock).  ``device``
+    defaults to the card.
+    """
+    if viewers < 1 or frames < 1:
+        raise SystemExit('--viewers and --frames must be >= 1')
+    if viewers_per_scene < 1:
+        raise SystemExit('--viewers-per-scene must be >= 1')
+    if sequential and viewers_per_scene > 1:
+        raise SystemExit('--viewers-per-scene > 1 needs the batched engine '
+                         '(the sequential baseline is fully private state)')
+    dev = resolve_device(device)
+    slots = slots or min(viewers, 8)
+    # scene blocks are static: round slots up to whole blocks
+    slots = -(-slots // viewers_per_scene) * viewers_per_scene
+    scene = structured_scene(seed, gaussians, device=dev)
+    cfg = LuminaConfig(capacity=capacity, window=window, backend=backend)
+    trace = traffic.make_trace(arrivals, viewers, seed=seed, rate=rate,
+                               burst=burst, gap=gap, jitter=jitter,
+                               stagger=stagger, pace=pace,
+                               pace_jitter=pace_jitter)
+    sessions = build_sessions(viewers, frames, width=width, stagger=stagger,
+                              viewers_per_scene=viewers_per_scene,
+                              arrivals=trace.arrivals, paces=trace.paces,
+                              device=dev)
+    cam0 = sessions[0].cams[0]
+    if sequential:
+        stepper = SequentialStepper(scene, cfg, cam0, slots, device=dev)
+    else:
+        stepper = BatchedStepper(scene, cfg, cam0, slots,
+                                 profile_every=profile_every,
+                                 viewers_per_scene=viewers_per_scene,
+                                 device=dev)
+    mgr = SessionManager(stepper, slots)
+    for sess in sessions:
+        mgr.submit(sess)
+    finished = mgr.run(driver=driver)
+
+    summaries = [s.telemetry.summary() for s in
+                 sorted(finished, key=lambda s: s.sid)]
+    agg = aggregate(summaries)
+    agg['ticks'] = mgr.tick
+    agg['mode'] = 'sequential' if sequential else 'batched'
+    # tick-level rollup keys get a tick_ prefix: aggregate()'s
+    # mean_sort_ms/mean_shade_ms are session-level means
+    roll = tick_rollup(mgr.tick_log, warmup_ticks=1)
+    agg['backend'] = backend
+    agg['viewers_per_scene'] = viewers_per_scene
+    agg['driver'] = driver
+    agg['arrivals'] = arrivals
+    agg['device'] = str(dev)
+    agg['pool_resizes'] = (mgr.metrics['pool.resizes'].value
+                           if 'pool.resizes' in mgr.metrics else 0)
+    agg['mean_sorts_per_tick'] = roll['mean_sorts_per_tick']
+    agg['max_sorts_per_tick'] = roll['max_sorts_per_tick']
+    agg['tick_sort_ms'] = roll['mean_sort_ms']
+    agg['tick_shade_ms'] = roll['mean_shade_ms']
+    agg['kernel_ms'] = roll['kernel_ms']
+    for key in ('last_occupancy', 'max_sort_pool_live', 'sort_pool_bytes',
+                'sort_pool_alloc_bytes', 'sort_pool_reserved_bytes',
+                'cache_bytes', 'state_bytes', 'state_alloc_bytes',
+                'state_reserved_bytes', 'p50_frame_ms', 'p95_frame_ms',
+                'host_ms', 'host_overlap'):
+        if key in roll:
+            agg[key] = roll[key]
+    print_fn(format_table(summaries))
+    print_fn(f"-- {agg['mode']} ({backend}, {dev}): {agg['sessions']} "
+             f"sessions, {agg['frames']} frames in {agg['ticks']} ticks, "
+             f"fleet {agg['fleet_fps']:.2f} fps/viewer (frame-weighted), "
+             f"mean hit rate {agg['mean_hit_rate']:.2f}, "
+             f"worst p99 {agg['worst_p99_ms']:.0f} ms, "
+             f"sort/shade {agg['mean_sort_ms']:.1f}/"
+             f"{agg['mean_shade_ms']:.1f} ms, "
+             f"max {agg['max_sorts_per_tick']} sorts/tick")
+    if 'max_sort_pool_live' in agg:
+        occ = agg.get('last_occupancy')
+        occ_s = f", cache occupancy {occ:.2f}" if occ is not None else ''
+        print_fn(f"-- state ({viewers_per_scene} viewers/scene): "
+                 f"{agg['max_sort_pool_live']} live sort buffers peak, "
+                 f"{agg['state_bytes'] / 1e6:.1f} MB live state "
+                 f"(cache {agg['cache_bytes'] / 1e6:.1f} MB + sort pool "
+                 f"{agg['sort_pool_bytes'] / 1e6:.1f} MB; "
+                 f"{agg['state_alloc_bytes'] / 1e6:.1f} MB allocated, "
+                 f"{agg.get('state_reserved_bytes', 0) / 1e6:.1f} MB static "
+                 f"reservation){occ_s}")
+    if roll['kernel_ms']:
+        parts = '  '.join(f'{k} {v:.1f}' for k, v in roll['kernel_ms'].items())
+        print_fn(f"-- shade stages (ms/tick, sampled): {parts}")
+    if 'host_ms' in agg:
+        print_fn(f"-- host pipeline ({driver}, {arrivals} arrivals): "
+                 f"plan {agg['host_ms']:.2f} ms/tick, "
+                 f"frame p50/p95 {agg.get('p50_frame_ms', 0.0):.1f}/"
+                 f"{agg.get('p95_frame_ms', 0.0):.1f} ms")
+    return agg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--viewers', type=int, default=4)
+    ap.add_argument('--frames', type=int, default=24)
+    ap.add_argument('--slots', type=int, default=0,
+                    help='render slots (default min(viewers, 8))')
+    ap.add_argument('--width', type=int, default=96,
+                    help='square image size in pixels')
+    ap.add_argument('--gaussians', type=int, default=1500)
+    ap.add_argument('--window', type=int, default=6)
+    ap.add_argument('--capacity', type=int, default=192)
+    ap.add_argument('--stagger', type=int, default=2,
+                    help='ticks between viewer arrivals')
+    ap.add_argument('--sequential', action='store_true',
+                    help='per-slot stepping instead of one batched shade')
+    ap.add_argument('--backend', choices=('reference', 'kernel'),
+                    default='reference',
+                    help='shade implementation: plain PyTorch reference or '
+                         'the CUDA kernel path')
+    ap.add_argument('--profile-every', type=int, default=0,
+                    help='sample a per-stage shade latency breakdown every '
+                         'N ticks (kernel backend, batched engine)')
+    ap.add_argument('--viewers-per-scene', type=int, default=1,
+                    help='slots per scene block: viewers of one scene share '
+                         'its radiance cache and pose-cell sort pool '
+                         '(batched engine only)')
+    ap.add_argument('--arrivals', choices=traffic.KINDS, default='stagger',
+                    help='arrival trace: fixed stagger, open-loop poisson '
+                         '(--rate viewers/tick, seeded by --seed) or bursty '
+                         'flash crowds (--burst/--gap, seeded only when '
+                         '--jitter > 0)')
+    ap.add_argument('--rate', type=float, default=0.5,
+                    help='poisson arrival rate in viewers per tick')
+    ap.add_argument('--burst', type=int, default=4,
+                    help='bursty arrivals: viewers landing together')
+    ap.add_argument('--gap', type=int, default=8,
+                    help='bursty arrivals: ticks between bursts')
+    ap.add_argument('--jitter', type=int, default=0,
+                    help='bursty arrivals: max seeded jitter per burst '
+                         '(ticks)')
+    ap.add_argument('--pace', type=int, default=1,
+                    help='viewer frame interval in ticks (1 = every tick)')
+    ap.add_argument('--pace-jitter', type=int, default=0,
+                    help='mix client rates: pace drawn from '
+                         '[pace, pace + jitter] per viewer')
+    ap.add_argument('--driver', choices=('sync',), default='sync',
+                    help='host loop: the sync virtual clock')
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (the default) or 'cpu' for the plain "
+                         'PyTorch versions')
+    args = ap.parse_args(argv)
+    return serve(args.viewers, args.frames, slots=args.slots,
+                 width=args.width, gaussians=args.gaussians,
+                 window=args.window, capacity=args.capacity,
+                 stagger=args.stagger, sequential=args.sequential,
+                 seed=args.seed, backend=args.backend,
+                 profile_every=args.profile_every,
+                 viewers_per_scene=args.viewers_per_scene,
+                 arrivals=args.arrivals, rate=args.rate, burst=args.burst,
+                 gap=args.gap, jitter=args.jitter, pace=args.pace,
+                 pace_jitter=args.pace_jitter, driver=args.driver,
+                 device=args.device)
+
+
+if __name__ == '__main__':
+    main()
