@@ -21,7 +21,17 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 5. kernels: the inputs of each kernel are captured from one more real frame
    of the main path, and each kernel is held against its plain version on
    them (integer outputs exactly, floats within 128 ulps x magnitude) and
-   timed with CUDA events beside it;
+   timed with CUDA events beside it; ``rasterize`` also in full mode and in
+   resume mode (start at phase A's ``iter_at_k``, live where phase B works),
+   with the pixel-Gaussian pairs of its walk counted three ways (in walked
+   chunks and examined, from the kernel's outputs, and left after the band
+   cull as its plain mirror ``tile_cull_plain`` predicts);
+   then a stress phase: ``rasterize`` (all three modes, and resume with
+   some transmittances NaN) and
+   ``rasterize_slots`` on seeded synthetic tiles whose Gaussians sit on tile
+   borders and on the edge of the cull's ellipse, with extreme conics
+   (near-singular, non-finite) and opacities, held exactly against their
+   plain versions;
 6. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
    + ``BatchedStepper``) serves 4 viewers of 12 frames each, arriving 2
    ticks apart, in 4 slots at the same size, once with one viewer per scene
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -144,7 +155,8 @@ def capture_inputs(pkg, run_frame) -> dict:
 
     with patched([(pkg.rk, 'rasterize', 'rasterize'),
                   (pkg.rk, 'rasterize_compact', 'rasterize_compact'),
-                  (pkg.ops, '_rc_lookup_kernel', 'rc_lookup')], wrap):
+                  (pkg.ops, '_rc_lookup_kernel', 'rc_lookup'),
+                  (pkg.ops, 'rasterize_resume_compacted', 'resume')], wrap):
         run_frame()
     return calls
 
@@ -213,7 +225,35 @@ def check_raster(name: str, got, want) -> float:
                float((got.trans - want.trans).abs().max()))
 
 
+def pair_counts(rk, feats, walked, n_iter, chunk: int, tiles_x: int) -> dict:
+    """The pixel-Gaussian pairs of one tile walk ([T, K] features, each
+    tile walking ``walked[t]`` chunks from the front): in the walked chunks
+    and examined (n_iter), both from the kernel's outputs, and the
+    candidates that the kernel's band cull leaves as its plain mirror
+    predicts them (``tile_cull_plain`` on the walked chunks; the kernel
+    reports no such count)."""
+    import torch
+    mean2d, conic, _, opacity, ids = feats
+    keep = rk.tile_cull_plain(mean2d, conic, opacity, ids, tiles_x=tiles_x)
+    in_walk = (torch.arange(ids.shape[-1], device=ids.device)[None]
+               < walked[:, None] * chunk)
+    return {'walked': int(in_walk.sum()) * rk.P,
+            'examined': int(n_iter.sum()),
+            'candidates': int((keep & in_walk[..., None]).sum())
+            * (rk.P // keep.shape[-1])}
+
+
+def print_pairs(name: str, pairs: dict) -> None:
+    print(f'kernel {name}: pixel-Gaussian pairs in walked chunks '
+          f'{pairs["walked"]}, examined {pairs["examined"]}; candidates after '
+          f'the band cull as tile_cull_plain predicts them '
+          f'{pairs["candidates"]} '
+          f'({pairs["candidates"] / max(pairs["walked"], 1):.4f} of walked)',
+          flush=True)
+
+
 def kernel_phase(calls, pkg, launches, chunk: int) -> list:
+    import torch
     rk, rcl = pkg.rk, pkg.rcl
     rows = []
 
@@ -226,6 +266,22 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
     full_kw = dict(kw, stop_at_k=False)
     err_full = check_raster('rasterize[full]', rk.rasterize(*args, **full_kw),
                             rk.rasterize_plain(*args, **full_kw))
+    # resume mode, the whole-tile phase B (rc_compact=False): phase A's state,
+    # each pixel starting at its iter_at_k, live where phase B works
+    st_a, miss = calls['resume'][0][2:4]
+    live = pkg.ops.resume_live_mask(st_a, miss, kw['k_record']).to(torch.int32)
+    res_args = (*args[:5], st_a.acc, st_a.trans, st_a.record, st_a.rec_cnt,
+                st_a.iter_at_k, live, args[11])
+    got_res = rk.rasterize(*res_args, **full_kw)
+    err_res = check_raster('rasterize[resume]', got_res,
+                           rk.rasterize_plain(*res_args, **full_kw))
+    res_ms = time_ms(lambda: rk.rasterize(*res_args, **full_kw), 20)
+    print(f'kernel rasterize[resume]: exact ints, max_abs_err {err_res}; '
+          f'{res_ms:.4f} ms; {int(live.sum())} live pixels, '
+          f'{int(got_res.chunks.sum())} chunks', flush=True)
+    pairs = pair_counts(rk, args[:5], got.chunks[:, 0], got.n_iter, chunk,
+                        kw['tiles_x'])
+    print_pairs('rasterize', pairs)
     ms = time_ms(lambda: rk.rasterize(*args, **kw), 20)
     plain_ms = time_ms(lambda: rk.rasterize_plain(*args, **kw), 3)
     # every pixel's state is an output; the initial state of phase A is a
@@ -236,8 +292,9 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
                      source='src/repro_torch/kernels/csrc/rasterize.cu',
                      replaces='src/repro/kernels/rasterize.py:185',
                      launches=launches['rasterize'],
-                     max_abs_err=max(err, err_full), ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                     max_abs_err=max(err, err_full, err_res), ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=None))
     print(f'kernel rasterize: exact ints, max_abs_err {err} (full mode '
           f'{err_full}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound '
           f'{bound_ms:.4f} ms ({bound_by}); {int(got.chunks.sum())} chunks '
@@ -316,6 +373,134 @@ def rc_lookup_row(rcl, call, launches: int, label: str = 'rc_lookup') -> dict:
                 replaces='src/repro/kernels/rc_lookup.py:49',
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by='bytes', library_ms=None)
+
+
+def stress_features(pkg, gen, shape: tuple, tiles_x: int, chunk: int):
+    """Seeded synthetic tile lists of ``shape`` = (..., T, K) on the card:
+    Gaussians on and near tile borders, on the edge of the kernel's cull
+    ellipse, and anywhere; axis-aligned to singular conics, some non-finite
+    or negative; opacities from 0 through 1/255 (and a few float32 ulps
+    on either side) to 1 and beyond; -1 holes, and each list cut at a random
+    length.  Returns the five feature tensors and the tiles' chunk caps."""
+    import torch
+    dev, f32 = DEVICE, torch.float32
+    *lead, t, k = shape
+
+    def uniform(lo, hi, size=shape):
+        return lo + (hi - lo) * torch.rand(size, generator=gen, device=dev)
+
+    def pick(values, size=shape):
+        v = torch.tensor(values, dtype=torch.float64, device=dev)
+        return v[torch.randint(0, len(v), size, generator=gen, device=dev)]
+
+    tix = torch.arange(t, device=dev)[:, None]
+    x0 = (tix % tiles_x * 16).double()
+    y0 = (tix // tiles_x * 16).double()
+    kind = torch.randint(0, 6, shape, generator=gen, device=dev)
+    la, lc = 10 ** uniform(-4.0, 1.0), 10 ** uniform(-4.0, 1.0)
+    rho = pick([0.0, 0.5, 0.99, 0.9995, 0.99999, 1.0, -0.9999])
+    b = rho * torch.sqrt(la * lc)
+    k_sig = float(torch.tensor(1 / 255, dtype=f32))
+    op = pick([0.0, 1e-3, k_sig * (1 - 2e-7), k_sig, k_sig * (1 + 2e-7),
+               0.004, 0.05, 0.5, 0.99, 1.0, 1.5])
+    op = torch.where(uniform(0.0, 1.0) < 0.3, uniform(0.0, 1.0), op)
+    # the tangent distance of the ellipse alpha = 1/255 from the mean
+    r2 = 2 * torch.log(torch.clamp(op, min=1e-30) / k_sig)
+    det = la * lc - b * b
+    ex = torch.nan_to_num(torch.sqrt(r2 * lc / det), nan=4.0, posinf=4.0)
+    edge = 1 + uniform(-2e-3, 2e-3)
+    border = pick([-0.5, 0.0, 0.5, 15.5, 16.0, 16.5, -3.0, 19.0], (*shape, 2))
+    mx = torch.where(kind < 3, x0 + border[..., 0] + 0.3 * torch.randn(
+        shape, generator=gen, device=dev, dtype=torch.float64), x0 + 15.5 + ex * edge)
+    my = torch.where(kind < 3, y0 + border[..., 1], y0 + uniform(0.0, 16.0))
+    anywhere = kind == 5
+    mx = torch.where(anywhere, uniform(-20.0, 16.0 * tiles_x + 20), mx)
+    my = torch.where(anywhere, uniform(-20.0, (t // tiles_x + 1) * 16.0 + 20), my)
+    bad = uniform(0.0, 1.0) < 0.02
+    la = torch.where(bad, pick([float('inf'), float('nan'), -1.0]), la)
+    ids = torch.arange(k, device=dev, dtype=torch.int32).expand(shape)
+    n_valid = torch.randint(0, k + 1, (*lead, t, 1), generator=gen, device=dev)
+    ids = torch.where((uniform(0.0, 1.0) < 0.05)
+                      | (torch.arange(k, device=dev) >= n_valid), -1, ids)
+    mean2d = torch.stack([mx, my], -1).to(f32).contiguous()
+    conic = torch.stack([la, b, lc], -1).to(f32).contiguous()
+    color = torch.rand((*shape, 3), generator=gen, device=dev)
+    ncap = pkg.ops.chunk_caps(ids.reshape(-1, k), chunk).reshape(*lead, t)
+    return ((mean2d, conic, color, op.to(f32).contiguous(), ids.contiguous()),
+            ncap.contiguous())
+
+
+def stress_state(gen, shape: tuple, k_record: int, k: int, resume: bool):
+    """Initial pixel state [*shape, P]: phase A's, or a random resume state
+    (transmittance down to its floor, counts to k, starts anywhere)."""
+    import torch
+    dev, i32 = DEVICE, torch.int32
+    shape = (*shape, 256)
+    live = (torch.rand(shape, generator=gen, device=dev) < 0.85).to(i32)
+    if not resume:
+        return (torch.zeros((*shape, 3), device=dev), torch.ones(shape, device=dev),
+                torch.full((*shape, k_record), -1, dtype=i32, device=dev),
+                torch.zeros(shape, dtype=i32, device=dev),
+                torch.zeros(shape, dtype=i32, device=dev), live)
+    trans = torch.rand(shape, generator=gen, device=dev)
+    trans = torch.where(trans < 0.05, 1e-5, trans)
+    return (torch.rand((*shape, 3), generator=gen, device=dev), trans,
+            torch.randint(-1, 1000, (*shape, k_record), generator=gen,
+                          device=dev, dtype=i32),
+            torch.randint(0, k_record + 1, shape, generator=gen, device=dev,
+                          dtype=i32),
+            torch.randint(0, k, shape, generator=gen, device=dev, dtype=i32),
+            live)
+
+
+def stress_phase(pkg) -> None:
+    """rasterize (full, prefix, resume, resume with NaN transmittances)
+    and rasterize_slots (full, prefix) on seeded synthetic tiles, held
+    exactly against their plain versions."""
+    import torch
+    rk = pkg.rk
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tiles_x, t, k, s, chunk, kr = 12, 96, 512, 4, 64, 5
+    kw = dict(tiles_x=tiles_x, k_record=kr, chunk=chunk)
+    feats, ncap = stress_features(pkg, gen, (t, k), tiles_x, chunk)
+    # a cap below the lists' own ends, too, as the single-slot kernel allows
+    ncap = torch.minimum(ncap, torch.randint(1, k // chunk + 1, (t,), generator=gen,
+                                             device=DEVICE, dtype=torch.int32))
+    keep = rk.tile_cull_plain(feats[0], feats[1], feats[3], feats[4],
+                              tiles_x=tiles_x)
+    valid = feats[4] >= 0
+    for mode in ('full', 'prefix', 'resume'):
+        state = stress_state(gen, (t,), kr, k, mode == 'resume')
+        mkw = dict(kw, stop_at_k=mode == 'prefix')
+        check_raster(f'stress rasterize[{mode}]',
+                     rk.rasterize(*feats, *state, ncap, **mkw),
+                     rk.rasterize_plain(*feats, *state, ncap, **mkw))
+    feats_s, ncap_s = stress_features(pkg, gen, (s, t, k), tiles_x, chunk)
+    state_s = stress_state(gen, (s, t), kr, k, False)
+    state_s = state_s[:4] + state_s[5:]           # the slots take no start
+    for stop in (False, True):
+        mkw = dict(kw, stop_at_k=stop)
+        check_raster(f'stress rasterize_slots[{"prefix" if stop else "full"}]',
+                     rk.rasterize_slots(*feats_s, *state_s, ncap_s, **mkw),
+                     rk.rasterize_slots_plain(*feats_s, *state_s, ncap_s, **mkw))
+    # resume with some transmittances NaN: neither done nor active, so the
+    # tile walks on and such a pixel examines nothing, as in the reference
+    state = stress_state(gen, (t,), kr, k, True)
+    nan = torch.rand(state[1].shape, generator=gen, device=DEVICE) < 0.02
+    state = (state[0], torch.where(nan, float('nan'), state[1]), *state[2:])
+    got = rk.rasterize(*feats, *state, ncap, **kw)
+    want = rk.rasterize_plain(*feats, *state, ncap, **kw)
+    if not torch.equal(got.trans.isnan(), want.trans.isnan()):
+        fail('stress rasterize[resume, NaN trans]: NaN lanes differ')
+    check_raster('stress rasterize[resume, NaN trans]',
+                 dataclasses.replace(got, trans=got.trans.nan_to_num(0.0)),
+                 dataclasses.replace(want, trans=want.trans.nan_to_num(0.0)))
+    print(f'stress: rasterize (full, prefix, resume, resume with NaN '
+          f'transmittances) on {t} tiles x {k} and '
+          f'rasterize_slots (full, prefix) on {s} x {t} x {k} synthetic '
+          f'Gaussians exact; the band cull removes '
+          f'{float(1 - keep[valid].float().mean()):.4f} of the valid '
+          f'(Gaussian, band) pairs of the single-slot lists', flush=True)
 
 
 def lumina_config(pkg, **overrides):
@@ -664,6 +849,11 @@ def slots_kernel_row(pkg, call, launches: int, chunk: int) -> dict:
         **kw).chunks[:, 0] for i in range(ids.shape[0])])
     if not bool((per_slot.amax(0) == got.chunks[:, 0]).all()):
         fail('rasterize_slots: chunks is not the max of the per-slot counts')
+    counts = [pair_counts(rk, [x[i] for x in args[:5]], per_slot[i],
+                          got.n_iter[i], chunk, kw['tiles_x'])
+              for i in range(ids.shape[0])]
+    pairs = {key: sum(c[key] for c in counts) for key in counts[0]}
+    print_pairs('rasterize_slots', pairs)
     ms = time_ms(lambda: rk.rasterize_slots(*args, **kw), 20)
     plain_ms = time_ms(lambda: rk.rasterize_slots_plain(*args, **kw), 1)
     bound_ms, bound_by = raster_bound(got, chunk, int(per_slot.sum()),
@@ -742,6 +932,7 @@ def main() -> int:
     rows = kernel_phase(calls, pkg, launches, cfg.shade_chunk)
     del states, records, calls
     torch.cuda.empty_cache()
+    stress_phase(pkg)
 
     serve_launches, capture = serve_phase(pkg, scene)
     slots, compact, lookup = serve_kernel_rows(pkg, capture, serve_launches,

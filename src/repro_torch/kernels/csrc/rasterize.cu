@@ -3,36 +3,103 @@
 // resume.
 //
 // Replaces the TPU kernels in src/repro/kernels/rasterize.py:
-//   * _kernel          (called through rasterize_pallas)
-//   * _kernel_slots    (called through rasterize_slots_pallas)
+//   * _kernel          (called through rasterize_pallas)       -> rasterize_kernel
+//   * _kernel_slots    (called through rasterize_slots_pallas) -> rasterize_kernel
+//                                                                on a (tile, slot) grid
 //   * _kernel_compact  (called through rasterize_compact_pallas)
+//                                                             -> rasterize_compact_kernel
 //
-// What bounds it on an H100: memory, on the main path's data.  A Gaussian's
-// 40 bytes of features are read once per tile and cost each pixel that
-// still examines it one exp and ~14 float operations, so a chunk in which
-// all 256 pixels work is bound by operations (~90 per byte, above the
-// card's ~20).  But in phase A most pixels of a walked chunk have already
-// filled their record or saturated, and phase B walks only miss lanes, so
-// on the main path's frames the pairs examined per byte read stay under
-// that ridge: the least time is that of reading the features the tiles
-// need and writing every pixel's state (chip_smoke.py's bound, computed
-// from each run's counts, reads 'bytes' for both kernels).
+// What bounds rasterize_kernel on an H100: instructions per walked
+// pixel-Gaussian pair, not bytes.  A Gaussian's 40 bytes of features are
+// read once per tile, but every pixel of a warp that still works pays the
+// pair's ~60-70 lane-instructions for it: un-fused __fmul_rn/__fadd_rn
+// arithmetic, an accurate expf and the bookkeeping.  chip_smoke.py prints,
+// for phase A and the serving slots, the pairs in the chunks the blocks
+// walk and the pairs the reference examines (n_iter), both from the
+// kernel's outputs, and the candidate pairs that the cull below leaves as
+// its plain mirror (tile_cull_plain) predicts them.  On the main path's
+// 1920x1080 frame of 1M Gaussians they are 355,024,896 / 179,671,959 /
+// 63,396,256, and on a serving tick of 4 slots 1,513,635,840 / 750,232,716
+// / 257,300,352: the cull leaves under a fifth of the walked pairs.
+// chip_smoke.py's bound (bytes, or 14 operations per examined pair) reads
+// 'bytes'.
 //
-// Design (right and simple first):
-//   * one block per 16x16 tile, one thread per pixel (256 threads);
-//   * rasterize_kernel stages each chunk of Gaussians cooperatively in shared
-//     memory (10 words per Gaussian), so a feature is read from device memory
-//     once per tile;
-//   * each thread walks the chunk in exactly the per-Gaussian order of the
-//     reference (`_seq_chunk` in the JAX package, rasterize_plain here);
+// Design:
+//   * one block per 16x16 tile (per (tile, slot) in the serving tick), one
+//     thread per pixel; each chunk of Gaussians is staged cooperatively in
+//     shared memory, so a feature is read from device memory once per tile;
+//   * a per-chunk band cull (below): while staging, the first `chunk`
+//     threads classify each Gaussian; then each warp (two pixel rows of the
+//     tile, a 16x2 band) tests every Gaussian of the chunk against its band
+//     and keeps a 32-bit ballot of candidates per 32 Gaussians;
+//   * a pixel walks only its warp's candidates, in list order, through
+//     integrate_one, exactly the per-Gaussian arithmetic of the reference
+//     (`_seq_chunk` in the JAX package, rasterize_plain here).  A culled
+//     Gaussian changes nothing but n_iter, so the runs of culled Gaussians
+//     between two candidates add their examined count in bulk (a popcount
+//     of the culled valid ids at or past the pixel's start);
+//   * a pixel that becomes done inside a chunk (transmittance at its floor
+//     or, in prefix mode, a full record) stops walking it: the reference's
+//     remaining steps change nothing and examine nothing;
 //   * the early exit is a block-wide vote (__syncthreads_or) on the same
 //     condition as the reference loop, so the kernel counts chunks exactly as
 //     the reference does; the walk starts at the block minimum of the live
-//     pixels' start positions;
-//   * rasterize_compact_kernel gives every lane its own pixel center, source
-//     tile and chunk cap, and reads its source tile's features from device
-//     memory directly (lanes are packed source-tile-major, so neighbouring
-//     lanes mostly read the same addresses).
+//     pixels' start positions.  Culling changes no pixel's state after a
+//     chunk, so it changes neither the vote nor the chunk count.
+// Two further steps were measured and not kept (PERF.md): skipping expf for
+// a candidate pair whose power lies below ln(K / op) (after the band cull
+// few warps lie wholly outside an ellipse), and prefetching the next chunk
+// with cp.async while one is walked (blocks walk few chunks, and the other
+// blocks of an SM hide the staging).
+//
+// The cull.  Lemma: if the band test below says "culled", then for every
+// pixel centre of the band the kernel's own float arithmetic gives
+// alpha <= 1/255, power > 0 or gid < 0, so the pair is not significant.
+// Let K = float32(1/255), u = 2^-24, and for a pixel centre (px, py) let
+// dx = px - mx, dy = py - my exactly, A = a dx^2, C = c dy^2, B = b dx dy,
+// q = A + C + 2B (so the exact power is -q/2).
+//   1. gid < 0: not valid.  Culled.
+//   2. op * (1 + 2^-21) <= K (or op is NaN): with power <= 0, expf returns
+//      at most 1 + 2^-23 (2 ulps, CUDA's bound for expf), so
+//      op * expf(power) <= K and its rounding stays <= K.  Culled.
+//   3. Otherwise the geometric test, only when every input is finite,
+//      op <= 1, a > 0, c > 0 and b^2 <= (1 - 2^-11)^2 a c, i.e.
+//      1 - |rho| >= 2^-11 with rho = b / sqrt(a c) (the normalised conic's
+//      condition number (1 + |rho|) / (1 - |rho|) is below 2^12).  Anything
+//      else is never culled by geometry.
+//      a. Significant means op * expf(power_f) > K for the computed
+//         power_f; expf's 2-ulp error (a factor <= 1 + 2^-22 for results
+//         above K / op >= K, which are normal) gives
+//         power_f > ln(K / op) - 2^-21.
+//      b. power_f has 6 roundings on the A and C terms (dx, dx, two
+//         products, the sum, the final difference; -0.5 is exact) and 5 on
+//         B, so |power_f - (-q/2)| <= g6 (A/2 + C/2 + |B|) <= g6 (A + C),
+//         g6 = 6u / (1 - 6u), using |B| <= (A + C) / 2 (b^2 < a c).
+//         Subnormal absolute errors add under 2^-140.
+//      c. q >= (1 - |rho|)(A + C): in coordinates (sqrt(a) dx, sqrt(c) dy)
+//         the normalised conic's eigenvalues are 1 +- |rho|.
+//      d. So q (1 - beta) < 2 (ln(op / K) + eta) with eta = 2^-20 (covers
+//         2^-21 and the subnormal terms) and beta = 2 g6 / (1 - |rho|)
+//         <= 12u 2^11 (1 + 2^-20) < 2^-9.  A pixel can only be significant
+//         where q < R^2 = 2 (ln(op / K) + eta) / (1 - 2^-9).
+//      e. The band's pixel centres lie in the rectangle [x0 + 0.5, x0 + 15.5]
+//         x [y0 + 0.5, y0 + 1.5] (y0 the band's first row).  q is convex
+//         with its minimum at the mean, so over the rectangle its minimum is
+//         0 if the mean lies inside, else on an edge, where the 1-D minimum
+//         is the clamped vertex: dy = clamp(-b dx / c), dx = clamp(-b dy / a).
+//         The Gaussian is culled when that minimum >= R^2 (1 + 2^-20).
+//      The class (steps 1-3, R^2, -b/c, -b/a) and step e are computed in
+//      double: their own rounding (relative ~2^-50 after the conditioning
+//      limit) sits far inside the 2^-20 pad.  The plain mirror of this
+//      predicate, tile_cull_plain in rasterize.py, uses the same double
+//      expressions; the CPU tests hold it against the reference's float32
+//      per-pair arithmetic on the 256 centres of a tile.
+//
+// Why not tensor cores: the quadratic form written as a product on
+// wgmma/mma (TF32, or float32 accumulated in another order) changes power
+// by ulps, which flips alpha > 1/255 decisions, and those are integer
+// outputs (records, counts, chunks).  The per-pair arithmetic stays scalar
+// float32 in the reference's order.
 //
 // The slot-batched form (_kernel_slots) walks one tile of all S serving
 // slots.  On the TPU one program holds every slot's lanes of a tile, and its
@@ -54,9 +121,13 @@
 //     count is the largest per-block count of the tile: each block does
 //     atomicMax of its count into chunks[t], which the wrapper zero-fills.
 //     An integer max does not depend on the order the atomics run in.
-// Bound: the same as phase A, bytes (chip_smoke.py's bound counts the
-// feature chunks the walked (slot, tile) pairs read and every lane's output
-// state).
+//
+// rasterize_compact_kernel gives every lane its own pixel center, source
+// tile and chunk cap, and reads its source tile's features from device
+// memory directly (lanes are packed source-tile-major, so neighbouring
+// lanes mostly read the same addresses).  The band cull does not carry to
+// it as is: the lanes of a block come from many source tiles.  What bounds
+// it: bytes on the main path's data (chip_smoke.py's bound).
 //
 // Integer outputs (records, counts, chunks) depend on float comparisons, so
 // the arithmetic is written with explicit round-to-nearest intrinsics (no
@@ -70,9 +141,19 @@ namespace {
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;
+constexpr int kWarps = kPix / 32;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaSig = 0.003921569f;   // float32(1 / 255)
 constexpr float kTransEps = 1e-4f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The cull's constants (see the lemma above).
+constexpr double kOpFloorFactor = 1.0 + 0x1p-21;   // step 2
+constexpr double kRhoMax = 1.0 - 0x1p-11;          // step 3, conditioning
+constexpr double kEta = 0x1p-20;                   // step 3d
+constexpr double kBeta = 0x1p-9;                   // step 3d
+constexpr double kPad = 1.0 + 0x1p-20;             // step 3e
+constexpr int kCulled = 0, kTest = 1, kKept = 2;   // per-Gaussian classes
 
 struct PixelState {
   float acc0, acc1, acc2, trans;
@@ -116,14 +197,60 @@ __device__ __forceinline__ void integrate_one(
   s.niter += examined ? 1 : 0;
 }
 
+// Steps 1-3 of the cull for one Gaussian: kCulled, kKept, or kTest with the
+// squared radius threshold r2 (padded) and the edge-vertex slopes.
+__device__ __forceinline__ int cull_class(
+    float mx, float my, float ca, float cb, float cc, float op, int gid,
+    double* r2, double* nbc, double* nba) {
+  if (gid < 0) return kCulled;
+  const double o = op;
+  if (!(o * kOpFloorFactor > static_cast<double>(kAlphaSig))) return kCulled;
+  if (!(o <= 1.0) || !isfinite(mx) || !isfinite(my) || !isfinite(ca) ||
+      !isfinite(cb) || !isfinite(cc))
+    return kKept;
+  const double a = ca, b = cb, c = cc;
+  if (!(a > 0.0) || !(c > 0.0) || !(b * b <= kRhoMax * kRhoMax * (a * c)))
+    return kKept;
+  *r2 = 2.0 * (log(o / static_cast<double>(kAlphaSig)) + kEta) /
+        (1.0 - kBeta) * kPad;
+  *nbc = -b / c;
+  *nba = -b / a;
+  return kTest;
+}
+
+__device__ __forceinline__ double conic_q(double a, double b, double c,
+                                          double u, double v) {
+  return a * u * u + 2.0 * b * u * v + c * v * v;
+}
+
+// Step e: can a kTest Gaussian be significant anywhere in the rectangle
+// [xl, xl + w] x [yl, yl + h] of pixel centres?
+__device__ __forceinline__ bool rect_may_contribute(
+    double mx, double my, double a, double b, double c, double r2, double nbc,
+    double nba, double xl, double yl, double w, double h) {
+  const double u0 = xl - mx, u1 = u0 + w;
+  const double v0 = yl - my, v1 = v0 + h;
+  if (u0 <= 0.0 && u1 >= 0.0 && v0 <= 0.0 && v1 >= 0.0) return true;
+  double q = conic_q(a, b, c, u0, fmin(fmax(nbc * u0, v0), v1));
+  q = fmin(q, conic_q(a, b, c, u1, fmin(fmax(nbc * u1, v0), v1)));
+  q = fmin(q, conic_q(a, b, c, fmin(fmax(nba * v0, u0), u1), v0));
+  q = fmin(q, conic_q(a, b, c, fmin(fmax(nba * v1, u0), u1), v1));
+  return !(q >= r2);
+}
+
+// bits n..31 set (all for n <= 0, none for n >= 32)
+__device__ __forceinline__ unsigned bits_from(int n) {
+  return n <= 0 ? kFull : (n >= 32 ? 0u : (kFull << n));
+}
+
 __device__ __forceinline__ int block_min(int v, int* scratch) {
   for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = min(v, __shfl_xor_sync(kFull, v, off));
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) scratch[warp] = v;
   __syncthreads();
   int m = scratch[0];
-  for (int i = 1; i < kPix / 32; ++i) m = min(m, scratch[i]);
+  for (int i = 1; i < kWarps; ++i) m = min(m, scratch[i]);
   __syncthreads();
   return m;
 }
@@ -155,6 +282,11 @@ __device__ __forceinline__ void store_state(
   itk[q] = s.itk;
 }
 
+// shared memory of rasterize_kernel per Gaussian of a chunk: r2, -b/c, -b/a
+// (double); mean 2, conic 3, color 3, opacity (float); id, class (int)
+constexpr size_t kSmemPerGaussian =
+    3 * sizeof(double) + 9 * sizeof(float) + 2 * sizeof(int);
+
 __global__ void __launch_bounds__(kPix) rasterize_kernel(
     const float* __restrict__ mean2d, const float* __restrict__ conic,
     const float* __restrict__ color, const float* __restrict__ opacity,
@@ -167,8 +299,11 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
     int* __restrict__ cnt, int* __restrict__ nsig, int* __restrict__ niter,
     int* __restrict__ itk, int* __restrict__ chunks,
     int k_total, int tiles_x, int k_record, int chunk, int stop_at_k) {
-  extern __shared__ float smem[];
-  float* s_mx = smem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* s_r2 = reinterpret_cast<double*>(smem);
+  double* s_nbc = s_r2 + chunk;
+  double* s_nba = s_nbc + chunk;
+  float* s_mx = reinterpret_cast<float*>(s_nba + chunk);
   float* s_my = s_mx + chunk;
   float* s_ca = s_my + chunk;
   float* s_cb = s_ca + chunk;
@@ -178,16 +313,23 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
   float* s_b = s_g + chunk;
   float* s_op = s_b + chunk;
   int* s_id = reinterpret_cast<int*>(s_op + chunk);
-  __shared__ int scratch[kPix / 32];
+  int* s_cls = s_id + chunk;
+  __shared__ int scratch[kWarps];
 
   // grid (T, S): tile t of slot blockIdx.y, row = slot * T + t of the
   // [S * T, ...] operands (S = 1 outside the serving tick)
   const int t = blockIdx.x;
   const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + t;
   const int p = threadIdx.x;
+  const int lane = p & 31;
   const size_t q = row * kPix + p;
-  const float px = static_cast<float>((t % tiles_x) * kTile + (p % kTile)) + 0.5f;
-  const float py = static_cast<float>((t / tiles_x) * kTile + (p / kTile)) + 0.5f;
+  const int x0 = (t % tiles_x) * kTile;
+  const int y0 = (t / tiles_x) * kTile;
+  const float px = static_cast<float>(x0 + (p % kTile)) + 0.5f;
+  const float py = static_cast<float>(y0 + (p / kTile)) + 0.5f;
+  // this warp's band: pixel rows 2w and 2w + 1 of the tile
+  const double band_x = x0 + 0.5;
+  const double band_y = y0 + 2 * (p >> 5) + 0.5;
   const bool live = live_in[q] != 0;
   const int start = start_iter == nullptr ? 0 : start_iter[q];
   const bool stop = stop_at_k != 0;
@@ -207,25 +349,68 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
     if (!(c < nc) || !any_left) break;
     for (int j = p; j < chunk; j += kPix) {
       const size_t g = tile_base + static_cast<size_t>(c) * chunk + j;
-      s_mx[j] = mean2d[g * 2 + 0];
-      s_my[j] = mean2d[g * 2 + 1];
-      s_ca[j] = conic[g * 3 + 0];
-      s_cb[j] = conic[g * 3 + 1];
-      s_cc[j] = conic[g * 3 + 2];
+      const float mx = mean2d[g * 2 + 0], my = mean2d[g * 2 + 1];
+      const float ca = conic[g * 3 + 0], cb = conic[g * 3 + 1];
+      const float cc = conic[g * 3 + 2], op = opacity[g];
+      const int gid = ids[g];
+      s_mx[j] = mx;
+      s_my[j] = my;
+      s_ca[j] = ca;
+      s_cb[j] = cb;
+      s_cc[j] = cc;
       s_r[j] = color[g * 3 + 0];
       s_g[j] = color[g * 3 + 1];
       s_b[j] = color[g * 3 + 2];
-      s_op[j] = opacity[g];
-      s_id[j] = ids[g];
+      s_op[j] = op;
+      s_id[j] = gid;
+      s_cls[j] = cull_class(mx, my, ca, cb, cc, op, gid, s_r2 + j, s_nbc + j,
+                            s_nba + j);
     }
     __syncthreads();
-    // a pixel that is dead, saturated or (in prefix mode) full changes
-    // nothing in this chunk, so it skips the walk
-    if (!done) {
-      for (int i = 0; i < chunk; ++i) {
-        integrate_one(s, my_rec, px, py, s_mx[i], s_my[i], s_ca[i], s_cb[i],
-                      s_cc[i], s_r[i], s_g[i], s_b[i], s_op[i], s_id[i],
-                      c * chunk + i, start, live, k_record, stop);
+    // a warp whose pixels are all dead, saturated or (in prefix mode) full
+    // changes nothing in this chunk, so it skips the chunk.  `going` is
+    // integrate_one's `active` and prefix test, so a NaN transmittance
+    // (neither done nor active) examines nothing, as in the reference.
+    bool going = live && s.trans > kTransEps && !(stop && s.cnt >= k_record);
+    if (__any_sync(kFull, going)) {
+      const int chunk_pos = c * chunk;
+      for (int g0 = 0; g0 < chunk; g0 += 32) {
+        // the warp's candidates among Gaussians g0 .. g0 + 31, and the valid
+        // ids it culled
+        const int i = g0 + lane;
+        bool keep = false, valid = false;
+        if (i < chunk) {
+          valid = s_id[i] >= 0;
+          const int cls = s_cls[i];
+          keep = cls == kKept ||
+                 (cls == kTest &&
+                  rect_may_contribute(s_mx[i], s_my[i], s_ca[i], s_cb[i],
+                                      s_cc[i], s_r2[i], s_nbc[i], s_nba[i],
+                                      band_x, band_y, kTile - 1, 1.0));
+        }
+        const unsigned cand = __ballot_sync(kFull, keep);
+        const unsigned culled = __ballot_sync(kFull, valid && !keep);
+        if (!going) continue;
+        // a culled valid id at or past the pixel's start is examined while
+        // the pixel goes on, and changes nothing else
+        const unsigned counted = culled & bits_from(start - (chunk_pos + g0));
+        unsigned todo = cand;
+        int next = 0;
+        while (todo) {
+          const int j = __ffs(todo) - 1;
+          todo &= todo - 1;
+          s.niter += __popc(counted & bits_from(next) & ~bits_from(j));
+          next = j + 1;
+          const int k = g0 + j;
+          integrate_one(s, my_rec, px, py, s_mx[k], s_my[k], s_ca[k], s_cb[k],
+                        s_cc[k], s_r[k], s_g[k], s_b[k], s_op[k], s_id[k],
+                        chunk_pos + k, start, live, k_record, stop);
+          if (!(s.trans > kTransEps) || (stop && s.cnt >= k_record)) {
+            going = false;   // the rest of the chunk changes nothing
+            break;
+          }
+        }
+        if (going) s.niter += __popc(counted & bits_from(next));
       }
     }
     __syncthreads();
@@ -298,7 +483,7 @@ int launch_tiles(
     void* trans, void* rec, void* cnt, void* nsig, void* niter, void* itk,
     void* chunks, int num_tiles, int num_slots, int k_total, int tiles_x,
     int k_record, int chunk, int stop_at_k, void* stream) {
-  const size_t smem = static_cast<size_t>(chunk) * 10 * sizeof(float);
+  const size_t smem = static_cast<size_t>(chunk) * kSmemPerGaussian;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         rasterize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

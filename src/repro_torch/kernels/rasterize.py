@@ -31,6 +31,7 @@ import torch
 
 from ..core.gaussians import ALPHA_MAX, ALPHA_SIGNIFICANT, TRANSMITTANCE_EPS
 from ..core.rasterize import P, pixel_centers
+from ..core.tiling import TILE
 from . import LAUNCHES, build
 
 _SIGNATURES = {'rasterize_launch': (20, 6, 1),
@@ -118,6 +119,67 @@ def _walk(feat_at, px, py, state, start, live, c0, cond, *, k_record, chunk,
             chunks[rows] += 1
         c += 1
     return chunks[:, None]
+
+
+# The band cull of ``rasterize_kernel`` (its source note proves it
+# conservative): each warp of a tile's block (a band of 16x2 pixels) walks
+# only the Gaussians of a chunk that may be significant at one of its pixel
+# centres; a culled Gaussian changes nothing but n_iter.  These are the
+# constants of that note (steps 2, 3, 3d and 3e).
+_CULL_OP_FACTOR = 1.0 + 2.0 ** -21
+_CULL_RHO_MAX = 1.0 - 2.0 ** -11
+_CULL_ETA = 2.0 ** -20
+_CULL_BETA = 2.0 ** -9
+_CULL_PAD = 1.0 + 2.0 ** -20
+BAND_ROWS = 2   # pixel rows of a warp's band
+
+
+def tile_cull_plain(mean2d, conic, opacity, ids, *,
+                    tiles_x: int) -> torch.Tensor:
+    """The kernel's cull predicate, written with tensor ops in the same
+    double-precision expressions: may Gaussian k of tile t be significant at
+    a pixel centre of band j (rows ``BAND_ROWS * j`` onwards) of the tile?
+
+    Features [..., T, K, ...] as in ``rasterize``.  Returns keep
+    [..., T, K, 16 // BAND_ROWS] bool; a False entry is a culled pair.  Used
+    by the tests and by ``chip_smoke.py``'s counters, not by the wrappers.
+    """
+    f64 = torch.float64
+    dev = ids.device
+    t = ids.shape[-2]
+    k_sig = float(torch.tensor(ALPHA_SIGNIFICANT, dtype=torch.float32))
+    mx, my = mean2d[..., 0].to(f64), mean2d[..., 1].to(f64)
+    a, b, c = (conic[..., i].to(f64) for i in range(3))
+    op = opacity.to(f64)
+    culled = (ids < 0) | ~(op * _CULL_OP_FACTOR > k_sig)
+    finite = (torch.isfinite(mean2d).all(-1) & torch.isfinite(conic).all(-1))
+    test = (~culled & (op <= 1.0) & finite & (a > 0.0) & (c > 0.0)
+            & (b * b <= _CULL_RHO_MAX * _CULL_RHO_MAX * (a * c)))
+    kept = ~culled & ~test
+    r2 = 2.0 * (torch.log(op / k_sig) + _CULL_ETA) / (1.0 - _CULL_BETA) * _CULL_PAD
+    nbc, nba = -b / c, -b / a
+    tix = torch.arange(t, device=dev)
+    x_lo = (tix % tiles_x * TILE).to(f64)[:, None] + 0.5
+
+    def q(u, v):
+        return a * u * u + 2.0 * b * u * v + c * v * v
+
+    def clamp(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    bands = []
+    for j in range(TILE // BAND_ROWS):
+        y_lo = (tix // tiles_x * TILE + BAND_ROWS * j).to(f64)[:, None] + 0.5
+        u0, v0 = x_lo - mx, y_lo - my
+        u1, v1 = u0 + (TILE - 1), v0 + (BAND_ROWS - 1)
+        inside = (u0 <= 0.0) & (u1 >= 0.0) & (v0 <= 0.0) & (v1 >= 0.0)
+        qmin = torch.minimum(
+            torch.minimum(q(u0, clamp(nbc * u0, v0, v1)),
+                          q(u1, clamp(nbc * u1, v0, v1))),
+            torch.minimum(q(clamp(nba * v0, u0, u1), v0),
+                          q(clamp(nba * v1, u0, u1), v1)))
+        bands.append(kept | (test & (inside | ~(qmin >= r2))))
+    return torch.stack(bands, -1)
 
 
 def _init_state(acc0, trans0, rec0, cnt0, k_total):
