@@ -26,12 +26,17 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    with the pixel-Gaussian pairs of its walk counted three ways (in walked
    chunks and examined, from the kernel's outputs, and left after the band
    cull as its plain mirror ``tile_cull_plain`` predicts);
-   then a stress phase: ``rasterize`` (all three modes, and resume with
-   some transmittances NaN) and
-   ``rasterize_slots`` on seeded synthetic tiles whose Gaussians sit on tile
-   borders and on the edge of the cull's ellipse, with extreme conics
-   (near-singular, non-finite) and opacities, held exactly against their
-   plain versions;
+   ``rasterize_compact`` in both addressing modes (home lanes, as phase B
+   calls it, and the explicit lanes of the JAX package's contract), with
+   counters of what its lanes ask of it (``compact_counters``), and the
+   CUDA route of ``ops.rasterize_resume_compacted`` against its plain route;
+   then two stress phases on seeded synthetic data, held exactly against
+   the plain versions: ``rasterize`` (all three modes, and resume with some
+   transmittances NaN) and ``rasterize_slots`` on tiles whose Gaussians sit
+   on tile borders and on the edge of the cull's ellipse, with extreme
+   conics (near-singular, non-finite) and opacities; ``rasterize_compact``
+   in both modes on full-width lists, with lanes that start at their cap,
+   NaN and floor transmittances, dead lanes and n_live 0, 1, 256, 257;
 6. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
    + ``BatchedStepper``) serves 4 viewers of 12 frames each, arriving 2
    ticks apart, in 4 slots at the same size, once with one viewer per scene
@@ -46,7 +51,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ``rasterize_compact`` over the miss lanes of all slots, ``rc_lookup``
    over the scene's groups) are captured from a tick of the second run with
    all 4 lanes live, and each kernel is held against its plain version
-   there and timed;
+   there and timed, as is the CUDA route of
+   ``ops.rasterize_resume_compacted_slots`` against its plain route;
 7. print the total wall time, the ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -90,7 +96,7 @@ DEVICE = 'cuda'
 def serve_kernels(pkg) -> list:
     """The serving tick's kernel wrappers, as ``patched`` targets."""
     return [(pkg.rk, 'rasterize_slots', 'rasterize_slots'),
-            (pkg.rk, 'rasterize_compact', 'rasterize_compact'),
+            (pkg.rk, 'rasterize_compact_home', 'rasterize_compact'),
             (pkg.ops, '_rc_lookup_kernel', 'rc_lookup')]
 
 
@@ -154,7 +160,7 @@ def capture_inputs(pkg, run_frame) -> dict:
         return recorder
 
     with patched([(pkg.rk, 'rasterize', 'rasterize'),
-                  (pkg.rk, 'rasterize_compact', 'rasterize_compact'),
+                  (pkg.rk, 'rasterize_compact_home', 'rasterize_compact'),
                   (pkg.ops, '_rc_lookup_kernel', 'rc_lookup'),
                   (pkg.ops, 'rasterize_resume_compacted', 'resume')], wrap):
         run_frame()
@@ -225,6 +231,16 @@ def check_raster(name: str, got, want) -> float:
                float((got.trans - want.trans).abs().max()))
 
 
+def check_raster_nan(name: str, got, want) -> None:
+    """``check_raster`` for states that may hold NaN transmittances: the NaN
+    lanes must match, then the rest is held as usual."""
+    import torch
+    if not torch.equal(got.trans.isnan(), want.trans.isnan()):
+        fail(f'{name}: NaN lanes differ')
+    check_raster(name, dataclasses.replace(got, trans=got.trans.nan_to_num(0.0)),
+                 dataclasses.replace(want, trans=want.trans.nan_to_num(0.0)))
+
+
 def pair_counts(rk, feats, walked, n_iter, chunk: int, tiles_x: int) -> dict:
     """The pixel-Gaussian pairs of one tile walk ([T, K] features, each
     tile walking ``walked[t]`` chunks from the front): in the walked chunks
@@ -276,9 +292,13 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
     err_res = check_raster('rasterize[resume]', got_res,
                            rk.rasterize_plain(*res_args, **full_kw))
     res_ms = time_ms(lambda: rk.rasterize(*res_args, **full_kw), 20)
+    # a live pixel reads acc 3, trans, record k, count, start and live
+    res_bound, res_by = raster_bound(got_res, chunk, int(got_res.chunks.sum()),
+                                     int(live.sum()), 6 + kw['k_record'])
     print(f'kernel rasterize[resume]: exact ints, max_abs_err {err_res}; '
-          f'{res_ms:.4f} ms; {int(live.sum())} live pixels, '
-          f'{int(got_res.chunks.sum())} chunks', flush=True)
+          f'{res_ms:.4f} ms, bound {res_bound:.4f} ms ({res_by}); '
+          f'{int(live.sum())} live pixels, {int(got_res.chunks.sum())} chunks',
+          flush=True)
     pairs = pair_counts(rk, args[:5], got.chunks[:, 0], got.n_iter, chunk,
                         kw['tiles_x'])
     print_pairs('rasterize', pairs)
@@ -302,6 +322,8 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
 
     rows.append(compact_row(rk, calls['rasterize_compact'],
                             launches['rasterize_compact'], chunk, plain_reps=3))
+    resume_route_check(pkg, pkg.ops.rasterize_resume_compacted, calls['resume'],
+                       'ops.rasterize_resume_compacted')
     rows.append(rc_lookup_row(rcl, calls['rc_lookup'], launches['rc_lookup']))
     return rows
 
@@ -309,17 +331,30 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
 def compact_row(rk, call, launches: int, chunk: int, *, plain_reps: int,
                 label: str = 'rasterize_compact') -> dict:
     """rasterize_compact (phase B over miss-compacted lanes) against its
-    plain version on one captured call."""
+    plain version on one captured call, in both addressing modes: home lanes
+    (``rasterize_compact_home``, as the main path calls it) and the explicit
+    lanes of the JAX package's contract (``rasterize_compact`` on the same
+    lanes, gathered by ``compact_lanes``)."""
     import torch
     args, kw = call
-    got = rk.rasterize_compact(*args, **kw)
-    want = rk.rasterize_compact_plain(*args, **kw)
-    err = check_raster(label, got, want)
-    ms = time_ms(lambda: rk.rasterize_compact(*args, **kw), 20)
-    plain_ms = time_ms(lambda: rk.rasterize_compact_plain(*args, **kw),
+    got = rk.rasterize_compact_home(*args, **kw)
+    want = rk.rasterize_compact_home_plain(*args, **kw)
+    err = check_raster(f'{label}[home]', got, want)
+    lane_kw = dict(k_record=kw['k_record'], chunk=kw['chunk'])
+    lane_args = (*args[:5], *rk.compact_lanes(
+        *args[5:10], *args[12:15], tiles_x=kw['tiles_x'], t_img=kw['t_img']))
+    got_l = rk.rasterize_compact(*lane_args, **lane_kw)
+    err_l = check_raster(f'{label}[lanes]', got_l,
+                         rk.rasterize_compact_plain(*lane_args, **lane_kw))
+    if not torch.equal(got_l.chunks, got.chunks):
+        fail(f'{label}: the two addressing modes count different chunks')
+    ms = time_ms(lambda: rk.rasterize_compact_home(*args, **kw), 20)
+    lanes_ms = time_ms(lambda: rk.rasterize_compact(*lane_args, **lane_kw), 20)
+    plain_ms = time_ms(lambda: rk.rasterize_compact_home_plain(*args, **kw),
                        plain_reps)
     # feature chunks the live lanes need: distinct (source tile, chunk) pairs
-    ids, src, ncap, start, live = args[4], args[7], args[8], args[13], args[14]
+    ids, src, ncap, start, live = (lane_args[4], lane_args[7], lane_args[8],
+                                   lane_args[13], lane_args[14])
     nc_total = ids.shape[1] // chunk
     c_lo = torch.where(live != 0, start, ids.shape[1]).amin(1, keepdim=True) // chunk
     c_hi = c_lo + got.chunks
@@ -331,18 +366,91 @@ def compact_row(rk, call, launches: int, chunk: int, *, plain_reps: int,
     # A live lane reads acc 3, trans, record k, count, start, live, px, py,
     # src and ncap.
     k = got.record.shape[-1]
-    bound_ms, bound_by = raster_bound(got, chunk, int(need.sum()),
+    bound_ms, bound_by = raster_bound(got_l, chunk, int(need.sum()),
                                       int((live != 0).sum()), 11 + k)
-    print(f'kernel {label}: exact ints, max_abs_err {err}; '
-          f'{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
-          f'({bound_by}); {int((live != 0).sum())} live lanes in '
-          f'{src.shape[0]} lane tiles over {ids.shape[0]} source tiles, '
-          f'{int(got.chunks.sum())} chunks', flush=True)
+    print(f'kernel {label}: exact ints and chunks in both addressing modes, '
+          f'max_abs_err {max(err, err_l)}; home lanes {ms:.4f} ms, explicit '
+          f'lanes {lanes_ms:.4f} ms, vs plain {plain_ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by}); {int((live != 0).sum())} live '
+          f'lanes in {src.shape[0]} lane tiles over {ids.shape[0]} source '
+          f'tiles, {int(got.chunks.sum())} chunks', flush=True)
+    compact_counters(rk, call, lane_args, lane_kw, got_l, label)
     return dict(name='rasterize_compact', route='cuda',
                 source='src/repro_torch/kernels/csrc/rasterize.cu',
                 replaces='src/repro/kernels/rasterize.py:355',
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                launches=launches, max_abs_err=max(err, err_l), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def compact_counters(rk, call, args, kw, got, label: str) -> None:
+    """What rasterize_compact's lanes ask of it on one captured call, printed
+    only: the lane tiles holding a live lane out of all; the lane-chunks the
+    tiles walk (trip count x P) against those the live lanes need each on
+    its own (own stop chunk minus own start chunk, from the plain mirror
+    ``compact_lane_stops_plain``, whose trip count must equal the
+    kernel's); the Gaussians each warp walks in sequence (its longest
+    lane's), longest and mean; distinct source tiles per warp of live lanes
+    (median, 90th percentile); and the wrapper's time with every lane dead
+    (explicit lanes all dead; home lanes with n_live 0)."""
+    import torch
+    src, live = args[7], args[14] != 0
+    stop, start, c0 = rk.compact_lane_stops_plain(*args, **kw)
+    mirror = torch.clamp(stop.amax(1) - c0, min=0).to(torch.int32)[:, None]
+    if not torch.equal(mirror, got.chunks):
+        fail(f'{label}: the plain mirror of the trip count differs from the '
+             f'kernel\'s chunks')
+    own = torch.where(live, torch.clamp(stop - start, min=0), 0)
+    need = int(own.sum())
+    # a warp walks as long as its longest lane: Gaussians in sequence
+    steps = (own.reshape(-1, 32).amax(1) * kw['chunk']).float()
+    steps = steps[steps > 0] if bool((steps > 0).any()) else steps[:1]
+    lanes = torch.where(live, src, -1).reshape(-1, 32)
+    ordered = lanes.sort(1).values
+    distinct = ((ordered[:, 1:] != ordered[:, :-1]).sum(1) + 1
+                - (ordered[:, 0] < 0).int())
+    distinct = distinct[live.reshape(-1, 32).any(1)].float()
+    dead = list(args)
+    dead[14] = torch.zeros_like(args[14])
+    dead_ms = time_ms(lambda: rk.rasterize_compact(*dead, **kw), 20)
+    home_args, home_kw = call
+    home_dead = (*home_args[:14], torch.zeros_like(home_args[14]))
+    home_dead_ms = time_ms(lambda: rk.rasterize_compact_home(*home_dead,
+                                                             **home_kw), 20)
+    print(f'counters {label}: lane tiles with a live lane '
+          f'{int(live.any(1).sum())} of {src.shape[0]}; lane-chunks '
+          f'walked {int(got.chunks.sum()) * rk.P}, needed by the live lanes '
+          f'alone {need}; Gaussians a warp walks in sequence, longest '
+          f'{int(steps.max())}, mean {float(steps.mean()):.1f}; distinct '
+          f'source tiles per warp median '
+          f'{float(distinct.quantile(0.5))}, p90 {float(distinct.quantile(0.9))}'
+          f' over {distinct.numel()} warps; all lanes dead {dead_ms:.4f} ms '
+          f'(explicit lanes), {home_dead_ms:.4f} ms (home lanes)', flush=True)
+
+
+def resume_route_check(pkg, fn, call, label: str) -> None:
+    """The CUDA route of a compacted phase B (``fn``, an ``ops`` wrapper)
+    against its plain route (gather, ``rasterize_compact_plain``, scatter)
+    on the same captured inputs: records, counts and chunks exactly, colors
+    within the ulp bound."""
+    import torch
+    args, kw = call
+    got = fn(*args, **kw)
+    with patched([(pkg.rk, 'rasterize_compact_home', 'plain')],
+                 lambda _, __: pkg.rk.rasterize_compact_home_plain):
+        want = fn(*args, **kw)
+    for field in ('alpha_record', 'n_significant', 'n_iterated', 'iter_at_k'):
+        if not torch.equal(getattr(got[1], field), getattr(want[1], field)):
+            fail(f'{label}: {field} differs between the CUDA and plain routes')
+    if not torch.equal(got[2], want[2]):
+        fail(f'{label}: chunks differ between the CUDA and plain routes')
+    for name, x, y in (('colors', got[0], want[0]),
+                       ('transmittance', got[1].transmittance,
+                        want[1].transmittance)):
+        if not ulp_close(x, y):
+            fail(f'{label}: {name} differ by more than {ULPS} ulps')
+    print(f'{label}: CUDA route equals the plain route (ints and chunks '
+          f'exact, {int(got[2].sum())} chunks)', flush=True)
 
 
 def rc_lookup_row(rcl, call, launches: int, label: str = 'rc_lookup') -> dict:
@@ -488,19 +596,96 @@ def stress_phase(pkg) -> None:
     state = stress_state(gen, (t,), kr, k, True)
     nan = torch.rand(state[1].shape, generator=gen, device=DEVICE) < 0.02
     state = (state[0], torch.where(nan, float('nan'), state[1]), *state[2:])
-    got = rk.rasterize(*feats, *state, ncap, **kw)
-    want = rk.rasterize_plain(*feats, *state, ncap, **kw)
-    if not torch.equal(got.trans.isnan(), want.trans.isnan()):
-        fail('stress rasterize[resume, NaN trans]: NaN lanes differ')
-    check_raster('stress rasterize[resume, NaN trans]',
-                 dataclasses.replace(got, trans=got.trans.nan_to_num(0.0)),
-                 dataclasses.replace(want, trans=want.trans.nan_to_num(0.0)))
+    check_raster_nan('stress rasterize[resume, NaN trans]',
+                     rk.rasterize(*feats, *state, ncap, **kw),
+                     rk.rasterize_plain(*feats, *state, ncap, **kw))
     print(f'stress: rasterize (full, prefix, resume, resume with NaN '
           f'transmittances) on {t} tiles x {k} and '
           f'rasterize_slots (full, prefix) on {s} x {t} x {k} synthetic '
           f'Gaussians exact; the band cull removes '
           f'{float(1 - keep[valid].float().mean()):.4f} of the valid '
           f'(Gaussian, band) pairs of the single-slot lists', flush=True)
+
+
+def compact_stress_phase(pkg) -> None:
+    """rasterize_compact in both addressing modes on seeded synthetic lanes
+    over full-width lists (a 1920-pixel-wide band of 120 x 8 tiles, K =
+    1024, chunk 64), held exactly against ``rasterize_compact_plain`` (home
+    lanes: ``rasterize_compact_home_plain``), and each trip count against
+    its plain mirror ``compact_chunks_plain``.  The lanes: a tenth start at
+    their source tile's cap (start chunk = ncap, as iter_at_k can be
+    ncap * chunk), 2 % have a NaN transmittance and 5 % one below the floor;
+    home lanes with n_live 0, 1, 256, 257 and 6,000; explicit lanes with
+    all-dead lane tiles and dead lanes inside live ones."""
+    import torch
+    rk, ops = pkg.rk, pkg.ops
+    dev, i32 = DEVICE, torch.int32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tiles_x, t, k, chunk, kr = 120, 960, 1024, 64, 5
+    kw = dict(k_record=kr, chunk=chunk)
+    feats, ncap = stress_features(pkg, gen, (t, k), tiles_x, chunk)
+    acc0, trans0, rec0, cnt0, start, _ = stress_state(gen, (t,), kr, k, True)
+    full = cnt0 + kr      # home lanes hold a full record, as phase B's do
+    cap_pos = (ncap * chunk)[:, None]
+    start = torch.minimum(start, cap_pos)
+    start = torch.where(torch.rand(start.shape, generator=gen, device=dev) < 0.1,
+                        cap_pos, start).to(i32).contiguous()
+    nan = torch.rand(trans0.shape, generator=gen, device=dev) < 0.02
+    trans0 = torch.where(nan, float('nan'), trans0).contiguous()
+    nsig0 = torch.randint(0, 50, start.shape, generator=gen, device=dev, dtype=i32)
+    niter0 = torch.randint(0, 500, start.shape, generator=gen, device=dev, dtype=i32)
+    hkw = dict(kw, tiles_x=tiles_x, t_img=t)
+    chunks = []
+    for n in (0, 1, 256, 257, 6000):
+        live = torch.zeros(t * rk.P, dtype=torch.bool, device=dev)
+        live[torch.randperm(t * rk.P, generator=gen, device=dev)[:n]] = True
+        home, n_live = ops.compaction_order(live.reshape(t, rk.P))
+        args = (*feats, ncap, acc0, trans0, rec0, full, nsig0, niter0, start,
+                home, n_live)
+        got = rk.rasterize_compact_home(*args, **hkw)
+        check_raster_nan(f'stress rasterize_compact[home, n_live {n}]', got,
+                         rk.rasterize_compact_home_plain(*args, **hkw))
+        lane_args = (*feats, *rk.compact_lanes(ncap, acc0, trans0, rec0, full,
+                                               start, home, n_live,
+                                               tiles_x=tiles_x, t_img=t))
+        got_l = rk.rasterize_compact(*lane_args, **kw)
+        check_raster_nan(f'stress rasterize_compact[lanes, n_live {n}]', got_l,
+                         rk.rasterize_compact_plain(*lane_args, **kw))
+        if not (torch.equal(got.chunks, got_l.chunks) and torch.equal(
+                got.chunks, rk.compact_chunks_plain(*lane_args, **kw))):
+            fail(f'stress rasterize_compact[n_live {n}]: chunks differ between '
+                 f'the addressing modes or from the plain mirror')
+        chunks.append(int(got.chunks.sum()))
+    # explicit lanes of any source tile, source-tile-major as the wrappers
+    # pack them, with dead lanes anywhere and two all-dead lane tiles
+    ct = 32
+    src = torch.randint(0, t, (ct * rk.P,), generator=gen, device=dev).sort().values
+    pix = torch.randint(0, rk.P, (ct * rk.P,), generator=gen, device=dev)
+    h = src * rk.P + pix
+
+    def lanes(x):
+        return x.reshape(t * rk.P, *x.shape[2:])[h].reshape(ct, rk.P, *x.shape[2:])
+
+    px = ((src % tiles_x) * 16 + pix % 16).float().reshape(ct, rk.P) + 0.5
+    py = ((src // tiles_x) * 16 + pix // 16).float().reshape(ct, rk.P) + 0.5
+    live = (torch.rand((ct, rk.P), generator=gen, device=dev) < 0.85).to(i32)
+    live[[3, 17]] = 0
+    lane_args = (*feats, px, py, src.to(i32).reshape(ct, rk.P),
+                 ncap[src].reshape(ct, rk.P),
+                 *(lanes(x) for x in (acc0, trans0, rec0, cnt0, start)), live)
+    got = rk.rasterize_compact(*lane_args, **kw)
+    check_raster_nan('stress rasterize_compact[lanes, dead lanes anywhere]',
+                     got, rk.rasterize_compact_plain(*lane_args, **kw))
+    if not torch.equal(got.chunks, rk.compact_chunks_plain(*lane_args, **kw)):
+        fail('stress rasterize_compact[lanes, dead lanes anywhere]: chunks '
+             'differ from the plain mirror')
+    if int(got.chunks[3]) or int(got.chunks[17]):
+        fail('stress rasterize_compact: an all-dead lane tile walked')
+    print(f'stress: rasterize_compact (home and explicit lanes, n_live 0, 1, '
+          f'256, 257, 6000: {chunks} chunks; explicit lanes with dead lanes '
+          f'anywhere: {int(got.chunks.sum())} chunks) on {t} tiles x {k} '
+          f'synthetic Gaussians exact, trip counts equal to the plain mirror',
+          flush=True)
 
 
 def lumina_config(pkg, **overrides):
@@ -681,7 +866,9 @@ def serve_run(pkg, scene, backend: str, viewers_per_scene: int, *,
             return fn(*args, **kwargs)
         return recorder
 
-    targets = [] if capture is None else serve_kernels(pkg)
+    targets = [] if capture is None else [
+        *serve_kernels(pkg),
+        (pkg.ops, 'rasterize_resume_compacted_slots', 'resume')]
     pkg.kernels.reset_launches()
     t0 = time.perf_counter()
     with patched(targets, wrap):
@@ -783,7 +970,7 @@ def serve_phase(pkg, scene) -> tuple:
         del run, ref
         if DEVICE == 'cuda':
             torch.cuda.empty_cache()
-    for _, _, name in serve_kernels(pkg):
+    for name in [label for _, _, label in serve_kernels(pkg)] + ['resume']:
         if name not in capture:
             fail(f'{name} was not called at tick {CAPTURE_TICK}')
     return shared_launches, capture
@@ -826,6 +1013,8 @@ def serve_kernel_rows(pkg, capture, launches: dict, chunk: int) -> tuple:
     compact = compact_row(pkg.rk, capture['rasterize_compact'],
                           launches['rasterize_compact'], chunk, plain_reps=1,
                           label='rasterize_compact[serve]')
+    resume_route_check(pkg, pkg.ops.rasterize_resume_compacted_slots,
+                       capture['resume'], 'ops.rasterize_resume_compacted_slots')
     lookup = rc_lookup_row(pkg.rcl, capture['rc_lookup'],
                            launches['rc_lookup'], label='rc_lookup[serve]')
     return slots, compact, lookup
@@ -933,6 +1122,7 @@ def main() -> int:
     del states, records, calls
     torch.cuda.empty_cache()
     stress_phase(pkg)
+    compact_stress_phase(pkg)
 
     serve_launches, capture = serve_phase(pkg, scene)
     slots, compact, lookup = serve_kernel_rows(pkg, capture, serve_launches,

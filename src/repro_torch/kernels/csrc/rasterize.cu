@@ -8,6 +8,7 @@
 //                                                                on a (tile, slot) grid
 //   * _kernel_compact  (called through rasterize_compact_pallas)
 //                                                             -> rasterize_compact_kernel
+//                                                                (explicit or home lanes)
 //
 // What bounds rasterize_kernel on an H100: instructions per walked
 // pixel-Gaussian pair, not bytes.  A Gaussian's 40 bytes of features are
@@ -122,12 +123,75 @@
 //     atomicMax of its count into chunks[t], which the wrapper zero-fills.
 //     An integer max does not depend on the order the atomics run in.
 //
-// rasterize_compact_kernel gives every lane its own pixel center, source
-// tile and chunk cap, and reads its source tile's features from device
-// memory directly (lanes are packed source-tile-major, so neighbouring
-// lanes mostly read the same addresses).  The band cull does not carry to
-// it as is: the lanes of a block come from many source tiles.  What bounds
-// it: bytes on the main path's data (chip_smoke.py's bound).
+// rasterize_compact_kernel is phase B over the miss-compacted lanes.  The
+// lanes of a [T, P] frame are ordered live first (a stable partition, in
+// ops.py) and grouped 256 to a lane tile, as in the JAX package: the trip
+// count it reports is per lane tile.  One body, compact_tile<kHome>, serves
+// two addressings:
+//   * explicit lanes (rasterize_compact_launch, the JAX package's
+//     contract): each lane of CT lane tiles carries its pixel centre,
+//     source tile, chunk cap, start and live flag, and its state in and out
+//     sits at its own index;
+//   * home lanes (rasterize_compact_home_launch, the phase-B path): lane j
+//     is pixel home[j] of the frame, live iff j < n_live (read on the
+//     device); its pixel centre and source tile follow from home[j]; it
+//     reads phase A's state there and writes its result there, its counts
+//     added to phase A's.  A grid-stride loop walks only the lane tiles
+//     below n_live: no dead lane is read or written.  The wrapper's outputs
+//     start as copies of phase A's acc, trans, count, n_sig and n_iter; a
+//     live lane holds a full record (count >= k, as phase B's lanes do), so
+//     its record and iter_at_k never change and are phase A's own tensors.
+//
+// Each lane walks alone, with no block barrier in the walk: from its own
+// start chunk, kBatch = 4 Gaussians at a time (four independent alpha
+// chains; the next four's features, color included, in flight as 16-byte
+// loads, which needs 16-byte aligned feature arrays and a chunk that is a
+// multiple of 4), until its transmittance reaches the floor or it passes
+// its cap.  The lane tile's trip count is then recovered exactly:
+//
+//   The coupled loop (the JAX kernel; rasterize_compact_plain) starts at
+//   c0 = min(min over live lanes of start // chunk, K / chunk) and runs
+//   while c < K / chunk and some lane "remains": live, trans > 1e-4 and
+//   c < ncap.  Each lane's remaining test, over c >= c0, holds up to a
+//   chunk f and fails from f on, and f depends on that lane alone:
+//   (i) before its start a lane changes nothing (its positions are not
+//   allowed, so nothing is examined or added), so its test there reads its
+//   initial trans; (ii) trans only falls (a contribution multiplies it by
+//   1 - alpha, alpha in (1/255, 0.99]), and a NaN trans fails at once and
+//   stays NaN (`active` is false, so no pair contributes); (iii) past its
+//   ncap every id of its source tile is -1 (ncap is one past the last
+//   valid id; for explicit lanes the wrapper states it as a condition), so
+//   nothing revives it.  So the loop ends at min(K / chunk, max(c0, max f))
+//   and counts max(0, max f - c0) chunks; the chunks a lane rides along on
+//   past its f change nothing, so its state equals its own walk's.
+//   A lane's f: c0 if it is dead or its trans starts at or below the
+//   floor or NaN; else min(e, cap), cap = min(ncap, K / chunk) and e one
+//   past the chunk in which its own walk saturated, else cap.  The kernel
+//   takes stop = 0 for the first kind and stop = min(e, cap) for the rest;
+//   the count max(0, max stop - c0) is then the same (f = c0 adds 0), a
+//   warp max (__reduce_max_sync) atomicMax'd into chunks[t], which the
+//   wrapper zeroes.  The edge cases: a lane whose start chunk equals its
+//   ncap (iter_at_k can be ncap * chunk) walks nothing and stops at cap =
+//   its start chunk, as the loop does; a lane whose ncap lies below c0
+//   gives a negative difference, floored; dead lanes inside a live lane
+//   tile give 0 and do not enter c0; c0 clamped to K / chunk (every live
+//   lane starting at K) gives 0 whatever the stops; a lane tile with no
+//   live lane gives 0 (explicit: c0 = K / chunk; home: never walked).
+//   compact_lane_stops_plain and compact_chunks_plain in rasterize.py
+//   mirror this count; the CPU tests hold it against the JAX kernel's
+//   chunks and show that it fails without the floor or with each lane's
+//   own start chunk in place of c0.
+//
+// What bounds it: the sequence of the longest lanes, not bytes (under a
+// tenth of its time, chip_smoke.py's bound).  A lane's pairs are a chain
+// through its transmittance, and a warp walks as long as its longest lane
+// (chip_smoke.py's counters: up to ~900 Gaussians); the warps of a lane
+// tile read 4-10 source tiles' lists at their own positions, so each load
+// touches several cache lines.  Measured on the card and not kept
+// (PERF.md): loading a color only for a contributing pair (a dependent
+// load inside the walk), starting every lane of a warp at the warp's first
+// chunk, staging a warp's source tiles in shared memory, prefetching the
+// lists ahead into L1 or L2, and 1, 2 or 8 Gaussians at a time.
 //
 // Integer outputs (records, counts, chunks) depend on float comparisons, so
 // the arithmetic is written with explicit round-to-nearest intrinsics (no
@@ -160,11 +224,13 @@ struct PixelState {
   int cnt, nsig, niter, itk;
 };
 
-// One Gaussian's update of one pixel.  Mirrors rasterize_plain step by step.
-__device__ __forceinline__ void integrate_one(
-    PixelState& s, int* rec, float px, float py, float gmx, float gmy,
-    float ca, float cb, float cc, float cr, float cg, float cbl, float op,
-    int gid, int abs_pos, int start, bool live, int k_record, bool stop_at_k) {
+// One Gaussian's alpha at one pixel centre, and whether the pair is valid
+// (power <= 0, gid >= 0): the part of integrate_one that does not depend on
+// the pixel's state.
+__device__ __forceinline__ float pair_alpha(float px, float py, float gmx,
+                                            float gmy, float ca, float cb,
+                                            float cc, float op, int gid,
+                                            bool* valid) {
   const float dx = __fsub_rn(px, gmx);
   const float dy = __fsub_rn(py, gmy);
   // -0.5 * (a*dx*dx + c*dy*dy) - b*dx*dy, left to right as written
@@ -172,9 +238,18 @@ __device__ __forceinline__ void integrate_one(
                                __fmul_rn(__fmul_rn(cc, dy), dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(cb, dx), dy));
-  float alpha = __fmul_rn(op, expf(power));
-  alpha = alpha > kAlphaMax ? kAlphaMax : alpha;   // NaN propagates, as minimum
-  const bool valid = (power <= 0.0f) && (gid >= 0);
+  const float alpha = __fmul_rn(op, expf(power));
+  *valid = (power <= 0.0f) && (gid >= 0);
+  return alpha > kAlphaMax ? kAlphaMax : alpha;   // NaN propagates, as minimum
+}
+
+// The rest of integrate_one: the pixel's update by a pair of the given
+// alpha.  `color()` gives the Gaussian's color; it is called only for a pair
+// that contributes.
+template <bool kRecord = true, class Color>
+__device__ __forceinline__ void apply_pair(
+    PixelState& s, int* rec, float alpha, bool valid, const Color& color,
+    int gid, int abs_pos, int start, bool live, int k_record, bool stop_at_k) {
   const bool allowed = (abs_pos >= start) && live;
   const bool active = s.trans > kTransEps;
   bool sig = (alpha > kAlphaSig) && valid && allowed;
@@ -184,17 +259,30 @@ __device__ __forceinline__ void integrate_one(
     examined = examined && (s.cnt < k_record);
   }
   if (sig && active) {
+    const float3 col = color();
     const float w = __fmul_rn(s.trans, alpha);
-    s.acc0 = __fadd_rn(s.acc0, __fmul_rn(w, cr));
-    s.acc1 = __fadd_rn(s.acc1, __fmul_rn(w, cg));
-    s.acc2 = __fadd_rn(s.acc2, __fmul_rn(w, cbl));
+    s.acc0 = __fadd_rn(s.acc0, __fmul_rn(w, col.x));
+    s.acc1 = __fadd_rn(s.acc1, __fmul_rn(w, col.y));
+    s.acc2 = __fadd_rn(s.acc2, __fmul_rn(w, col.z));
     s.trans = __fmul_rn(s.trans, __fsub_rn(1.0f, alpha));
-    if (s.cnt < k_record) rec[s.cnt] = gid;
+    if (kRecord && s.cnt < k_record) rec[s.cnt] = gid;
     if (s.cnt + 1 >= k_record && s.cnt < k_record) s.itk = abs_pos + 1;
     s.cnt += 1;
     s.nsig += 1;
   }
   s.niter += examined ? 1 : 0;
+}
+
+// One Gaussian's update of one pixel.  Mirrors rasterize_plain step by step.
+template <class Color>
+__device__ __forceinline__ void integrate_one(
+    PixelState& s, int* rec, float px, float py, float gmx, float gmy,
+    float ca, float cb, float cc, const Color& color, float op,
+    int gid, int abs_pos, int start, bool live, int k_record, bool stop_at_k) {
+  bool valid;
+  const float alpha = pair_alpha(px, py, gmx, gmy, ca, cb, cc, op, gid, &valid);
+  apply_pair(s, rec, alpha, valid, color, gid, abs_pos, start, live, k_record,
+             stop_at_k);
 }
 
 // Steps 1-3 of the cull for one Gaussian: kCulled, kKept, or kTest with the
@@ -403,8 +491,10 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
           next = j + 1;
           const int k = g0 + j;
           integrate_one(s, my_rec, px, py, s_mx[k], s_my[k], s_ca[k], s_cb[k],
-                        s_cc[k], s_r[k], s_g[k], s_b[k], s_op[k], s_id[k],
-                        chunk_pos + k, start, live, k_record, stop);
+                        s_cc[k],
+                        [&] { return make_float3(s_r[k], s_g[k], s_b[k]); },
+                        s_op[k], s_id[k], chunk_pos + k, start, live, k_record,
+                        stop);
           if (!(s.trans > kTransEps) || (stop && s.cnt >= k_record)) {
             going = false;   // the rest of the chunk changes nothing
             break;
@@ -422,57 +512,217 @@ __global__ void __launch_bounds__(kPix) rasterize_kernel(
   if (p == 0 && nchunks > 0) atomicMax(chunks + t, nchunks);
 }
 
-__global__ void __launch_bounds__(kPix) rasterize_compact_kernel(
-    const float* __restrict__ mean2d, const float* __restrict__ conic,
-    const float* __restrict__ color, const float* __restrict__ opacity,
-    const int* __restrict__ ids,
-    const float* __restrict__ px_in, const float* __restrict__ py_in,
-    const int* __restrict__ src_in, const int* __restrict__ ncap_in,
-    const float* __restrict__ acc0, const float* __restrict__ trans0,
-    const int* __restrict__ rec0, const int* __restrict__ cnt0,
-    const int* __restrict__ start_iter, const int* __restrict__ live_in,
-    float* __restrict__ acc, float* __restrict__ trans, int* __restrict__ rec,
-    int* __restrict__ cnt, int* __restrict__ nsig, int* __restrict__ niter,
-    int* __restrict__ itk, int* __restrict__ chunks,
-    int k_total, int k_record, int chunk) {
-  __shared__ int scratch[kPix / 32];
-  const int t = blockIdx.x;
+// The operands of rasterize_compact_kernel.  Explicit lanes (the JAX
+// package's contract): every lane of the CT lane tiles carries its pixel
+// centre, source tile, chunk cap, start and live flag, and its state in and
+// out sits at its own index.  Home lanes (the phase-B path): lane j of the
+// compacted order is home[j] of the [T * P] frame, live iff j < n_live; its
+// pixel centre and source tile follow from home[j], t_img and tiles_x, its
+// state in is phase A's at home[j], and its result, combined with phase A's
+// counts, is written back there; no other lane is read or written.
+struct CompactArgs {
+  const float* mean2d;    // features [T, K, ...] of the source tiles
+  const float* conic;
+  const float* color;
+  const float* opacity;
+  const int* ids;
+  const float* px;        // explicit: [CT * P] each
+  const float* py;
+  const int* src;
+  const int* ncap;
+  const int* live;
+  const int* home;        // home: [T * P], n_live (a device scalar) and the
+  const int* n_live;      // source tiles' chunk caps [T]
+  const int* tile_ncap;
+  const float* acc0;      // state in (home: phase A's; start_iter is its
+  const float* trans0;    // iter_at_k, and nsig0 / niter0 its counts)
+  const int* rec0;
+  const int* cnt0;
+  const int* start_iter;
+  const int* nsig0;
+  const int* niter0;
+  float* acc;             // state out, indexed like the state in (home:
+  float* trans;           // no record or iter_at_k)
+  int* rec;
+  int* cnt;
+  int* nsig;
+  int* niter;
+  int* itk;
+  int* chunks;            // [lane tiles], zero on entry
+  int k_total, k_record, chunk, tiles_x, t_img;
+};
+
+// Gaussians a lane takes at once: their alphas are computed side by side,
+// and their features, color included, arrive in 16-byte loads.
+constexpr int kBatch = 4;
+
+// The features of kBatch consecutive Gaussians of one list.
+struct Batch {
+  float mx[kBatch], my[kBatch], ca[kBatch], cb[kBatch], cc[kBatch];
+  float op[kBatch];
+  int gid[kBatch];
+  float r[kBatch], g[kBatch], b[kBatch];
+};
+
+// Gaussians g .. g + 3, g a multiple of 4: with 16-byte aligned feature
+// arrays every span below is 16-byte aligned (the wrappers check the
+// arrays).  conic and color hold a0 b0 c0 a1 | b1 c1 a2 b2 | c2 a3 b3 c3.
+__device__ __forceinline__ void load_batch(const CompactArgs& a, size_t g,
+                                           Batch& b) {
+  const float4* m = reinterpret_cast<const float4*>(a.mean2d + g * 2);
+  const float4 m0 = __ldg(m), m1 = __ldg(m + 1);
+  b.mx[0] = m0.x; b.my[0] = m0.y; b.mx[1] = m0.z; b.my[1] = m0.w;
+  b.mx[2] = m1.x; b.my[2] = m1.y; b.mx[3] = m1.z; b.my[3] = m1.w;
+  const float4* c = reinterpret_cast<const float4*>(a.conic + g * 3);
+  const float4 c0 = __ldg(c), c1 = __ldg(c + 1), c2 = __ldg(c + 2);
+  b.ca[0] = c0.x; b.cb[0] = c0.y; b.cc[0] = c0.z;
+  b.ca[1] = c0.w; b.cb[1] = c1.x; b.cc[1] = c1.y;
+  b.ca[2] = c1.z; b.cb[2] = c1.w; b.cc[2] = c2.x;
+  b.ca[3] = c2.y; b.cb[3] = c2.z; b.cc[3] = c2.w;
+  const float4 o = __ldg(reinterpret_cast<const float4*>(a.opacity + g));
+  b.op[0] = o.x; b.op[1] = o.y; b.op[2] = o.z; b.op[3] = o.w;
+  const int4 i = __ldg(reinterpret_cast<const int4*>(a.ids + g));
+  b.gid[0] = i.x; b.gid[1] = i.y; b.gid[2] = i.z; b.gid[3] = i.w;
+  const float4* k = reinterpret_cast<const float4*>(a.color + g * 3);
+  const float4 k0 = __ldg(k), k1 = __ldg(k + 1), k2 = __ldg(k + 2);
+  b.r[0] = k0.x; b.g[0] = k0.y; b.b[0] = k0.z;
+  b.r[1] = k0.w; b.g[1] = k1.x; b.b[1] = k1.y;
+  b.r[2] = k1.z; b.g[2] = k1.w; b.b[2] = k2.x;
+  b.r[3] = k2.y; b.g[3] = k2.z; b.b[3] = k2.w;
+}
+
+// One lane's walk from its own start chunk up to its cap `cap` (at most
+// K / chunk).  Returns the chunk at which the lane's remaining test first
+// fails: one past the chunk in which its transmittance reached the floor,
+// else `cap`.  The next batch is loaded while this one is applied in list
+// order.  kRecord: whether the walk may write the lane's record (home lanes
+// hold a full record, so theirs never changes).
+template <bool kRecord>
+__device__ __forceinline__ int walk_lane(PixelState& s, int* rec,
+                                         const CompactArgs& a, int src,
+                                         float px, float py, int start,
+                                         int cap) {
+  const int end = cap * a.chunk;
+  int pos = start / a.chunk * a.chunk;
+  if (pos >= end) return cap;
+  const size_t base = static_cast<size_t>(src) * a.k_total;
+  Batch next;
+  load_batch(a, base + pos, next);
+  for (; pos < end; pos += kBatch) {
+    const Batch cur = next;
+    if (pos + kBatch < end) load_batch(a, base + pos + kBatch, next);
+    float alpha[kBatch];
+    bool valid[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      alpha[j] = pair_alpha(px, py, cur.mx[j], cur.my[j], cur.ca[j], cur.cb[j],
+                            cur.cc[j], cur.op[j], cur.gid[j], &valid[j]);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      apply_pair<kRecord>(
+          s, rec, alpha[j], valid[j],
+          [&] { return make_float3(cur.r[j], cur.g[j], cur.b[j]); },
+          cur.gid[j], pos + j, start, true, a.k_record, false);
+      if (!(s.trans > kTransEps)) return (pos + j) / a.chunk + 1;
+    }
+  }
+  return cap;
+}
+
+// Walks one lane tile t (the lanes 256 t .. 256 t + 255 of the compacted
+// order).
+template <bool kHome>
+__device__ __forceinline__ void compact_tile(const CompactArgs& a, int t,
+                                             size_t n_live, int* scratch) {
   const int p = threadIdx.x;
   const size_t q = static_cast<size_t>(t) * kPix + p;
-  const float px = px_in[q];
-  const float py = py_in[q];
-  const size_t src_base = static_cast<size_t>(src_in[q]) * k_total;
-  const int lane_cap = ncap_in[q];
-  const bool live = live_in[q] != 0;
-  const int start = start_iter[q];
+  const bool live = kHome ? q < n_live : a.live[q] != 0;
+  size_t h = q;   // where the lane's state lives
+  int src = 0, lane_cap = 0, start = a.k_total;
+  float px = 0.0f, py = 0.0f;
+  if (!kHome) {
+    px = a.px[q];
+    py = a.py[q];
+    src = a.src[q];
+    lane_cap = a.ncap[q];
+    start = a.start_iter[q];
+  } else if (live) {
+    h = static_cast<size_t>(a.home[q]);
+    src = static_cast<int>(h / kPix);
+    const int pix = static_cast<int>(h % kPix);
+    const int tim = src % a.t_img;
+    px = static_cast<float>((tim % a.tiles_x) * kTile + pix % kTile) + 0.5f;
+    py = static_cast<float>((tim / a.tiles_x) * kTile + pix / kTile) + 0.5f;
+    lane_cap = a.tile_ncap[src];
+    start = a.start_iter[h];
+  }
 
   PixelState s;
-  load_state(s, q, acc0, trans0, rec0, cnt0, rec, k_record, k_total);
-  int* my_rec = rec + q * k_record;
-
-  const int nc_total = k_total / chunk;
-  int c = min(block_min(live ? start : k_total, scratch) / chunk, nc_total);
-  int nchunks = 0;
-  while (true) {
-    const bool remaining = live && (s.trans > kTransEps) && (c < lane_cap);
-    const int any_left = __syncthreads_or(remaining);
-    if (!(c < nc_total) || !any_left) break;
-    // a dead or saturated lane changes nothing in this chunk
-    if (live && s.trans > kTransEps) {
-      for (int i = 0; i < chunk; ++i) {
-        const size_t g = src_base + static_cast<size_t>(c) * chunk + i;
-        integrate_one(s, my_rec, px, py, mean2d[g * 2 + 0], mean2d[g * 2 + 1],
-                      conic[g * 3 + 0], conic[g * 3 + 1], conic[g * 3 + 2],
-                      color[g * 3 + 0], color[g * 3 + 1], color[g * 3 + 2],
-                      opacity[g], ids[g], c * chunk + i, start, live, k_record,
-                      false);
-      }
-    }
-    ++c;
-    ++nchunks;
+  int* my_rec = kHome ? nullptr : a.rec + h * a.k_record;
+  if (!kHome) {
+    load_state(s, q, a.acc0, a.trans0, a.rec0, a.cnt0, a.rec, a.k_record,
+               a.k_total);
+  } else if (live) {
+    s.acc0 = a.acc0[h * 3 + 0];
+    s.acc1 = a.acc0[h * 3 + 1];
+    s.acc2 = a.acc0[h * 3 + 2];
+    s.trans = a.trans0[h];
+    s.cnt = a.cnt0[h];
+    s.nsig = 0;
+    s.niter = 0;
+    s.itk = a.k_total;
   }
-  store_state(s, q, acc, trans, cnt, nsig, niter, itk);
-  if (p == 0) chunks[t] = nchunks;
+
+  const int nc_total = a.k_total / a.chunk;
+  const int c0 =
+      min(block_min(live ? start : a.k_total, scratch) / a.chunk, nc_total);
+  int stop = 0;
+  if (live && s.trans > kTransEps)
+    stop = walk_lane<!kHome>(s, my_rec, a, src, px, py, start,
+                             min(lane_cap, nc_total));
+  // the lane tile's trip count: the largest stop of its lanes past c0
+  const int warp_stop = __reduce_max_sync(kFull, stop);
+  if ((p & 31) == 0 && warp_stop > c0) atomicMax(a.chunks + t, warp_stop - c0);
+
+  if (!kHome) {
+    store_state(s, q, a.acc, a.trans, a.cnt, a.nsig, a.niter, a.itk);
+  } else if (live) {
+    a.acc[h * 3 + 0] = s.acc0;
+    a.acc[h * 3 + 1] = s.acc1;
+    a.acc[h * 3 + 2] = s.acc2;
+    a.trans[h] = s.trans;
+    a.cnt[h] = s.cnt;
+    a.nsig[h] = a.nsig0[h] + s.nsig;
+    a.niter[h] = a.niter0[h] + s.niter;
+  }
+}
+
+// A grid-stride loop over the lane tiles: explicit lanes walk all
+// `num_lane_tiles`; home lanes only those that hold a live lane (their
+// lanes are packed live first), so no block is spent on the others, whose
+// chunks stay 0.
+template <bool kHome>
+__global__ void __launch_bounds__(kPix) rasterize_compact_kernel(
+    const CompactArgs a, int num_lane_tiles) {
+  __shared__ int scratch[kWarps];
+  const size_t n_live = kHome ? static_cast<size_t>(*a.n_live) : 0;
+  const int tiles = kHome ? static_cast<int>((n_live + kPix - 1) / kPix)
+                          : num_lane_tiles;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    compact_tile<kHome>(a, t, n_live, scratch);
+}
+
+// Blocks of the compact kernel's grid: 8 for each of an H100's 132 SMs,
+// more than they hold at once, never more than there are lane tiles; the
+// grid-stride loop takes the rest.
+constexpr int kCompactGrid = 132 * 8;
+
+template <bool kHome>
+int launch_compact(const CompactArgs& a, int num_lane_tiles, void* stream) {
+  const int grid = num_lane_tiles < kCompactGrid ? num_lane_tiles : kCompactGrid;
+  rasterize_compact_kernel<kHome>
+      <<<grid, kPix, 0, static_cast<cudaStream_t>(stream)>>>(a, num_lane_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_tiles(
@@ -541,6 +791,7 @@ int rasterize_slots_launch(
                       tiles_x, k_record, chunk, stop_at_k, stream);
 }
 
+// Explicit lanes: operands [CT, P, ...]; chunks [CT] must be zero on entry.
 int rasterize_compact_launch(
     const void* mean2d, const void* conic, const void* color,
     const void* opacity, const void* ids, const void* px, const void* py,
@@ -549,21 +800,76 @@ int rasterize_compact_launch(
     const void* live, void* acc, void* trans, void* rec, void* cnt,
     void* nsig, void* niter, void* itk, void* chunks, int num_lane_tiles,
     int k_total, int k_record, int chunk, void* stream) {
-  rasterize_compact_kernel<<<num_lane_tiles, kPix, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mean2d), static_cast<const float*>(conic),
-      static_cast<const float*>(color), static_cast<const float*>(opacity),
-      static_cast<const int*>(ids), static_cast<const float*>(px),
-      static_cast<const float*>(py), static_cast<const int*>(src),
-      static_cast<const int*>(ncap), static_cast<const float*>(acc0),
-      static_cast<const float*>(trans0), static_cast<const int*>(rec0),
-      static_cast<const int*>(cnt0), static_cast<const int*>(start_iter),
-      static_cast<const int*>(live), static_cast<float*>(acc),
-      static_cast<float*>(trans), static_cast<int*>(rec),
-      static_cast<int*>(cnt), static_cast<int*>(nsig),
-      static_cast<int*>(niter), static_cast<int*>(itk),
-      static_cast<int*>(chunks), k_total, k_record, chunk);
-  return static_cast<int>(cudaGetLastError());
+  CompactArgs a{};
+  a.mean2d = static_cast<const float*>(mean2d);
+  a.conic = static_cast<const float*>(conic);
+  a.color = static_cast<const float*>(color);
+  a.opacity = static_cast<const float*>(opacity);
+  a.ids = static_cast<const int*>(ids);
+  a.px = static_cast<const float*>(px);
+  a.py = static_cast<const float*>(py);
+  a.src = static_cast<const int*>(src);
+  a.ncap = static_cast<const int*>(ncap);
+  a.live = static_cast<const int*>(live);
+  a.acc0 = static_cast<const float*>(acc0);
+  a.trans0 = static_cast<const float*>(trans0);
+  a.rec0 = static_cast<const int*>(rec0);
+  a.cnt0 = static_cast<const int*>(cnt0);
+  a.start_iter = static_cast<const int*>(start_iter);
+  a.acc = static_cast<float*>(acc);
+  a.trans = static_cast<float*>(trans);
+  a.rec = static_cast<int*>(rec);
+  a.cnt = static_cast<int*>(cnt);
+  a.nsig = static_cast<int*>(nsig);
+  a.niter = static_cast<int*>(niter);
+  a.itk = static_cast<int*>(itk);
+  a.chunks = static_cast<int*>(chunks);
+  a.k_total = k_total;
+  a.k_record = k_record;
+  a.chunk = chunk;
+  return launch_compact<false>(a, num_lane_tiles, stream);
+}
+
+// Home lanes over the [T, P] frame: phase A's state and counts in; acc,
+// trans, count, n_sig and n_iter out, the counts combined with phase A's
+// (every lane that is not live must already hold phase A's state there).
+// Live lanes hold a full record, so their record and iter_at_k do not
+// change and are not written.  chunks [T] must be zero on entry.
+int rasterize_compact_home_launch(
+    const void* mean2d, const void* conic, const void* color,
+    const void* opacity, const void* ids, const void* tile_ncap,
+    const void* acc0, const void* trans0, const void* cnt0, const void* nsig0,
+    const void* niter0, const void* itk0, const void* home,
+    const void* n_live, void* acc, void* trans, void* cnt, void* nsig,
+    void* niter, void* chunks, int num_tiles, int k_total, int tiles_x,
+    int t_img, int k_record, int chunk, void* stream) {
+  CompactArgs a{};
+  a.mean2d = static_cast<const float*>(mean2d);
+  a.conic = static_cast<const float*>(conic);
+  a.color = static_cast<const float*>(color);
+  a.opacity = static_cast<const float*>(opacity);
+  a.ids = static_cast<const int*>(ids);
+  a.tile_ncap = static_cast<const int*>(tile_ncap);
+  a.acc0 = static_cast<const float*>(acc0);
+  a.trans0 = static_cast<const float*>(trans0);
+  a.cnt0 = static_cast<const int*>(cnt0);
+  a.nsig0 = static_cast<const int*>(nsig0);
+  a.niter0 = static_cast<const int*>(niter0);
+  a.start_iter = static_cast<const int*>(itk0);
+  a.home = static_cast<const int*>(home);
+  a.n_live = static_cast<const int*>(n_live);
+  a.acc = static_cast<float*>(acc);
+  a.trans = static_cast<float*>(trans);
+  a.cnt = static_cast<int*>(cnt);
+  a.nsig = static_cast<int*>(nsig);
+  a.niter = static_cast<int*>(niter);
+  a.chunks = static_cast<int*>(chunks);
+  a.k_total = k_total;
+  a.k_record = k_record;
+  a.chunk = chunk;
+  a.tiles_x = tiles_x;
+  a.t_img = t_img;
+  return launch_compact<true>(a, num_tiles, stream);
 }
 
 const char* rasterize_error_string(int code) {

@@ -6,7 +6,8 @@ lookup kernels:
                              alpha-record fills (or terminates);
   * ``rasterize_resume``   — RC phase B: cache-miss pixels continue from
                              their saved state;
-  * ``rasterize_resume_compacted`` — phase B over miss-compacted tiles;
+  * ``rasterize_resume_compacted`` — phase B over miss-compacted lanes,
+                             addressed through their home pixels;
   * ``rc_lookup`` / ``rc_probe``   — LuminCache probe (+ LRU touch);
   * ``rasterize_with_rc``  — the cached-rasterization pipeline
                              (A -> lookup -> B -> insert), with the compute
@@ -172,62 +173,53 @@ def rasterize_resume(feats: TileFeatures, tiles_x: int,
     return _combine_resume(state_a, st, bg)
 
 
+def compaction_order(live: torch.Tensor):
+    """The compacted order of the lanes of a [T, P] live mask: live lanes
+    first, each half in flat (source-tile-major) order, a stable partition
+    computed on the device without a host sync.  Returns (home [T * P]
+    int32, the flat home index of each lane of that order; n_live, a 0-dim
+    int32 tensor)."""
+    i32 = torch.int32
+    flat = live.reshape(-1).to(i32)
+    n_live = flat.sum(dtype=i32)
+    idx = torch.arange(flat.numel(), dtype=i32, device=flat.device)
+    rank_live = torch.cumsum(flat, 0, dtype=i32)          # live lanes up to i
+    # live lane i goes to rank_live - 1, dead lane i after every live lane
+    dest = torch.where(flat != 0, rank_live - 1, idx - rank_live + n_live)
+    home = torch.empty_like(idx)
+    home[dest.long()] = idx                                # dest is a permutation
+    return home, n_live
+
+
 def rasterize_resume_compacted(feats: TileFeatures, tiles_x: int,
                                state_a: rk.RasterState, miss: torch.Tensor,
                                *, k_record: int = 5, chunk: int = 64,
                                bg: float = 0.0, t_img: int | None = None):
     """RC phase B with **miss compaction** — LuminCore's PE remap in software.
 
-    The miss pixels of the whole frame are gathered (with their phase-A
-    state) into dense compacted tiles, live lanes first and each half in
-    source-tile-major order (a stable partition), so only those tiles walk
-    the chunk loop and phase-B chunk count scales with the miss count, not
-    the tile count.  Results scatter back to their home pixels.  Integer
-    state equals ``rasterize_resume``'s exactly.
+    The live lanes of the whole frame (miss pixels that phase B must
+    integrate) are ordered live first, each half in source-tile-major order
+    (a stable partition, computed on the device without a host sync), and
+    grouped 256 to a lane tile, so phase B's chunk count scales with the
+    miss count, not the tile count.  ``rk.rasterize_compact_home`` walks
+    them through their home indices: on the card only live lanes are read
+    and written, the rest keep phase A's state.  Integer state equals
+    ``rasterize_resume``'s exactly.
 
     ``t_img`` = tiles per image: when the leading axis flattens slot x tile
     (cross-slot compaction in the serving tick), pixel coordinates repeat
     every ``t_img`` tiles.
     """
-    t, p = state_a.trans.shape
-    dev = state_a.trans.device
-    live = resume_live_mask(state_a, miss, k_record)
-
-    flat = live.reshape(-1).to(torch.int32)                    # [T*P]
-    n_live = flat.sum()
-    rank_live = torch.cumsum(flat, 0, dtype=torch.int32) - 1
-    rank_dead = torch.cumsum(1 - flat, 0, dtype=torch.int32) - 1 + n_live
-    dest = torch.where(flat != 0, rank_live, rank_dead).long()  # [T*P]
-    perm = torch.empty_like(dest)
-    perm[dest] = torch.arange(t * p, device=dev)               # dest is a permutation
-
-    idx = torch.arange(t * p, dtype=torch.int32, device=dev)
-    tix, pix = idx // p, idx % p
-    tim = tix % (t if t_img is None else t_img)
-    px = ((tim % tiles_x) * TILE + pix % TILE).float() + 0.5
-    py = ((tim // tiles_x) * TILE + pix // TILE).float() + 0.5
-    ncap_t = chunk_caps(feats.ids, chunk)
-
-    def gather(x):
-        return x.reshape(t * p, *x.shape[2:])[perm].reshape(t, p, *x.shape[2:])
-
-    st = rk.rasterize_compact(
-        *_features(feats), gather(px.reshape(t, p)), gather(py.reshape(t, p)),
-        gather(tix.reshape(t, p)), gather(ncap_t[tix.long()].reshape(t, p)),
-        gather(state_a.acc), gather(state_a.trans), gather(state_a.record),
-        gather(state_a.rec_cnt), gather(state_a.iter_at_k),
-        gather(live.to(torch.int32)), k_record=k_record, chunk=chunk)
-
-    def scatter(x):
-        return x.reshape(t * p, *x.shape[2:])[dest].reshape(t, p, *x.shape[2:])
-
-    # chunk counts belong to compacted tiles; their sum is the phase-B cost
-    st = rk.RasterState(
-        acc=scatter(st.acc), trans=scatter(st.trans), record=scatter(st.record),
-        rec_cnt=scatter(st.rec_cnt), n_sig=scatter(st.n_sig),
-        n_iter=scatter(st.n_iter), iter_at_k=scatter(st.iter_at_k),
-        chunks=st.chunks)
-    return _combine_resume(state_a, st, bg)
+    t = state_a.trans.shape[0]
+    home, n_live = compaction_order(resume_live_mask(state_a, miss, k_record))
+    st = rk.rasterize_compact_home(
+        *_features(feats), chunk_caps(feats.ids, chunk), state_a.acc,
+        state_a.trans, state_a.record, state_a.rec_cnt, state_a.n_sig,
+        state_a.n_iter, state_a.iter_at_k, home, n_live, tiles_x=tiles_x,
+        t_img=t if t_img is None else t_img, k_record=k_record, chunk=chunk)
+    # chunk counts belong to lane tiles; their sum is the phase-B cost
+    colors = st.acc + st.trans[..., None] * bg
+    return colors, _to_aux(st), st.chunks
 
 
 def rc_lookup(cache: rc.CacheState, ids: torch.Tensor, cfg: rc.CacheConfig):

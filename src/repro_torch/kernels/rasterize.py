@@ -15,10 +15,14 @@ Modes (see ``ops``):
               per-pixel ``start_iter`` and ``live`` (phase B).
 ``rasterize_compact`` is the miss-compacted resume: the P lanes of a block
 come from different source tiles, each with its own pixel center, source
-tile and chunk cap.  ``rasterize_slots`` is the full or prefix pass of the
-multi-viewer serving tick: one tile of all S slots, whose reported trip
-count is shared by the slots (the loop runs until no lane of any slot
-remains).
+tile and chunk cap; ``rasterize_compact_home`` is the same kernel over the
+compacted lanes of a [T, P] frame addressed through their home pixels, as
+phase B calls it (only live lanes are read and written).  Each lane walks
+on its own, and the lane tile's trip count is recovered from the lanes'
+stops (``compact_chunks_plain`` mirrors it).  ``rasterize_slots`` is the
+full or prefix pass of the multi-viewer serving tick: one tile of all S
+slots, whose reported trip count is shared by the slots (the loop runs
+until no lane of any slot remains).
 
 The kernel's record count counts every contribution (``rec_cnt`` may pass
 k); only the first k ids are recorded.
@@ -36,7 +40,8 @@ from . import LAUNCHES, build
 
 _SIGNATURES = {'rasterize_launch': (20, 6, 1),
                'rasterize_slots_launch': (19, 7, 1),
-               'rasterize_compact_launch': (23, 4, 1)}
+               'rasterize_compact_launch': (23, 4, 1),
+               'rasterize_compact_home_launch': (20, 6, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +249,120 @@ def rasterize_compact_plain(mean2d, conic, color, opacity, ids, px, py, src,
     return RasterState(*state, chunks=chunks)
 
 
+def compact_lane_stops_plain(mean2d, conic, color, opacity, ids, px, py, src,
+                             ncap, acc0, trans0, rec0, cnt0, start_iter, live,
+                             *, k_record: int = 5, chunk: int = 64):
+    """The pieces of ``rasterize_compact_kernel``'s decoupled trip count
+    (its source note proves it equal to the coupled loop's), from the same
+    arguments as ``rasterize_compact``.
+
+    Each lane is walked alone from its own start chunk, as a thread of the
+    kernel walks it, until its "remaining" test (transmittance above its
+    floor, chunk below ``min(ncap, K / chunk)``) fails.  Returns (stop
+    [CT, P], the chunk at which that test first fails for a live lane whose
+    transmittance starts above its floor and 0 for every other lane; start
+    [CT, P], each lane's own start chunk; c0 [CT], the lane tile's first
+    chunk, clamped to K / chunk)."""
+    k_total = ids.shape[1]
+    nc_total = k_total // chunk
+    ct = src.shape[0]
+    n = ct * P
+    live_b = live != 0
+    going = live_b & (trans0 > TRANSMITTANCE_EPS)
+    start = start_iter // chunk
+    cap = torch.clamp(ncap, max=nc_total).reshape(n)
+    first = torch.where(going, start, nc_total).reshape(n)
+    state = _init_state(acc0.reshape(n, 1, 3), trans0.reshape(n, 1),
+                        rec0.reshape(n, 1, k_record), cnt0.reshape(n, 1),
+                        k_total)
+    src_l = src.reshape(n).long()
+
+    def cond(c):
+        return (c < cap) & (state[1][:, 0] > TRANSMITTANCE_EPS)
+
+    def feat_at(rows, pos):
+        s = src_l[rows]
+        return (mean2d[s, pos][:, None], conic[s, pos][:, None],
+                color[s, pos][:, None], opacity[s, pos][:, None],
+                ids[s, pos][:, None])
+
+    walked = _walk(feat_at, px.reshape(n, 1), py.reshape(n, 1), state,
+                   start_iter.reshape(n, 1), live_b.reshape(n, 1), first, cond,
+                   k_record=k_record, chunk=chunk, stop_at_k=False)
+    stop = torch.where(going, torch.minimum(start + walked.reshape(ct, P),
+                                            cap.reshape(ct, P)), 0)
+    start_eff = torch.where(live_b, start_iter, k_total)
+    c0 = torch.clamp(start_eff.amin(1) // chunk, max=nc_total)
+    return stop, start, c0
+
+
+def compact_chunks_plain(*args, k_record: int = 5,
+                         chunk: int = 64) -> torch.Tensor:
+    """The kernel's per-lane-tile trip count, chunks [CT, 1]: the largest
+    stop chunk of ``compact_lane_stops_plain`` minus the tile's c0, floored
+    at 0.  Used by the tests and by ``chip_smoke.py``, not by the wrappers."""
+    stop, _, c0 = compact_lane_stops_plain(*args, k_record=k_record,
+                                           chunk=chunk)
+    return torch.clamp(stop.amax(1) - c0, min=0).to(torch.int32)[:, None]
+
+
+def compact_lanes(ncap, acc0, trans0, rec0, cnt0, itk0, home, n_live, *,
+                  tiles_x: int, t_img: int) -> tuple:
+    """The explicit lanes that a home-indexed call (``rasterize_compact_home``
+    arguments) stands for, in the compacted order: px, py, src, ncap, acc0,
+    trans0, rec0, cnt0, start_iter and live [T, P, ...], as
+    ``rasterize_compact`` takes them."""
+    t = trans0.shape[0]
+    n = t * P
+    home = home.long()
+    tix = home // P
+    pix = home % P
+    tim = tix % t_img
+    px = ((tim % tiles_x) * TILE + pix % TILE).float() + 0.5
+    py = ((tim // tiles_x) * TILE + pix // TILE).float() + 0.5
+    live = (torch.arange(n, device=home.device) < n_live).to(torch.int32)
+
+    def gather(x):
+        return x.reshape(n, *x.shape[2:])[home].reshape(t, P, *x.shape[2:])
+
+    return (px.reshape(t, P), py.reshape(t, P),
+            tix.to(torch.int32).reshape(t, P), ncap[tix].reshape(t, P),
+            gather(acc0), gather(trans0), gather(rec0), gather(cnt0),
+            gather(itk0), live.reshape(t, P))
+
+
+def rasterize_compact_home_plain(mean2d, conic, color, opacity, ids, ncap,
+                                 acc0, trans0, rec0, cnt0, nsig0, niter0,
+                                 itk0, home, n_live, *, tiles_x: int,
+                                 t_img: int, k_record: int = 5,
+                                 chunk: int = 64) -> RasterState:
+    """The home-indexed resume written with tensor ops (same arguments as
+    ``rasterize_compact_home``): gather the lanes into the compacted order
+    (``compact_lanes``), ``rasterize_compact_plain``, scatter back, and
+    combine with phase A's counts."""
+    lanes = compact_lanes(ncap, acc0, trans0, rec0, cnt0, itk0, home, n_live,
+                          tiles_x=tiles_x, t_img=t_img)
+    if bool(((lanes[7] < k_record) & (lanes[9] != 0)).any()):
+        raise ValueError('a live lane of rasterize_compact_home must hold a '
+                         'full record (cnt0 >= k_record)')
+    st = rasterize_compact_plain(mean2d, conic, color, opacity, ids, *lanes,
+                                 k_record=k_record, chunk=chunk)
+    home = home.long()
+
+    def scatter(x):
+        flat = x.reshape(home.numel(), *x.shape[2:])
+        out = torch.empty_like(flat)
+        out[home] = flat
+        return out.reshape(x.shape)
+
+    return RasterState(acc=scatter(st.acc), trans=scatter(st.trans),
+                       record=scatter(st.record), rec_cnt=scatter(st.rec_cnt),
+                       n_sig=nsig0 + scatter(st.n_sig),
+                       n_iter=niter0 + scatter(st.n_iter),
+                       iter_at_k=torch.minimum(itk0, scatter(st.iter_at_k)),
+                       chunks=st.chunks)
+
+
 def rasterize_slots_plain(mean2d, conic, color, opacity, ids, acc0, trans0,
                           rec0, cnt0, live, ncap, *, tiles_x: int,
                           k_record: int = 5, chunk: int = 64,
@@ -301,6 +420,21 @@ def _check(expect: dict, device: torch.device) -> None:
             raise ValueError(f'{name} has shape {tuple(x.shape)}, expected {tuple(shape)}')
         if not x.is_contiguous():
             raise ValueError(f'{name} is not contiguous')
+
+
+# rasterize_compact_kernel takes 4 Gaussians of a list at once, in 16-byte
+# loads
+_COMPACT_BATCH = 4
+
+
+def _check_compact(chunk: int, features) -> None:
+    if chunk % _COMPACT_BATCH:
+        raise ValueError(f'the rasterize_compact kernel needs chunk={chunk} '
+                         f'to be a multiple of {_COMPACT_BATCH}')
+    for x in features:
+        if x.data_ptr() % 16:
+            raise ValueError('the rasterize_compact kernel needs 16-byte '
+                             'aligned feature arrays')
 
 
 def _outputs(n: int, k_record: int, device) -> list:
@@ -419,9 +553,13 @@ def rasterize_slots(mean2d, conic, color, opacity, ids, acc0, trans0, rec0,
 def rasterize_compact(mean2d, conic, color, opacity, ids, px, py, src, ncap,
                       acc0, trans0, rec0, cnt0, start_iter, live, *,
                       k_record: int = 5, chunk: int = 64) -> RasterState:
-    """Resume integration over CT compacted tiles of lanes: features are the
-    full [T, K, ...] lists; px/py [CT,P] float32, src/ncap [CT,P] int32 and
-    the state tensors are [CT, P, ...] (see ``rasterize``)."""
+    """Resume integration over CT compacted tiles of lanes (the JAX
+    package's contract): features are the full [T, K, ...] lists; px/py
+    [CT,P] float32, src/ncap [CT,P] int32 and the state tensors are
+    [CT, P, ...] (see ``rasterize``).  A lane's ``ncap`` must not lie below
+    its source tile's ``chunk_caps`` (past it every id is -1): the kernel
+    walks each lane only up to its own cap, which equals the lane tile's
+    common loop under that condition.  Every lane's state is written out."""
     k_total = ids.shape[1]
     ct = src.shape[0]
     if k_total % chunk:
@@ -439,6 +577,7 @@ def rasterize_compact(mean2d, conic, color, opacity, ids, px, py, src, ncap,
             'src': (src, i32, (ct, P)), 'ncap': (ncap, i32, (ct, P)),
             **_state_spec(ct, k_record, acc0, trans0, rec0, cnt0,
                           start_iter, live)}, ids.device)
+    _check_compact(chunk, (mean2d, conic, color, opacity, ids))
     out = _outputs(ct, k_record, ids.device)
     if ct:
         lib = build.load('rasterize', _SIGNATURES)
@@ -453,3 +592,65 @@ def rasterize_compact(mean2d, conic, color, opacity, ids, px, py, src, ncap,
         build.check(lib, 'rasterize', code, 'rasterize_compact kernel')
         LAUNCHES['rasterize_compact'] += 1
     return RasterState(*out)
+
+
+def rasterize_compact_home(mean2d, conic, color, opacity, ids, ncap, acc0,
+                           trans0, rec0, cnt0, nsig0, niter0, itk0, home,
+                           n_live, *, tiles_x: int, t_img: int,
+                           k_record: int = 5, chunk: int = 64) -> RasterState:
+    """Phase B over the miss-compacted lanes of a [T, P] frame, addressed
+    through their home pixels.
+
+    ``home`` [T * P] int32 lists the flat home index of each lane of the
+    compacted order, live lanes first; the first ``n_live`` (a 0-dim int32
+    tensor, read on the device) are live.  Lane tile j is lanes 256 j ..
+    256 j + 255 of that order, as in ``rasterize_compact``.  Each live lane
+    starts at phase A's ``itk0`` from phase A's state (acc0, trans0, rec0,
+    cnt0 [T, P, ...]) with its source tile's cap from ``ncap`` [T]; pixel
+    coordinates repeat every ``t_img`` tiles.  As phase B's lanes do, every
+    live lane holds a full record (``cnt0 >= k_record``): its record and
+    iter_at_k then do not change, and come back as phase A's own ``rec0``
+    and ``itk0``.  Returns [T, P, ...] state combined with phase A's (n_sig
+    and n_iter added; every other lane keeps phase A's) and chunks [T, 1]
+    per lane tile.
+    """
+    t, k_total = ids.shape
+    if k_total % chunk:
+        raise ValueError(f'K={k_total} is not a multiple of chunk={chunk}')
+    if ids.device.type == 'cpu':
+        return rasterize_compact_home_plain(
+            mean2d, conic, color, opacity, ids, ncap, acc0, trans0, rec0,
+            cnt0, nsig0, niter0, itk0, home, n_live, tiles_x=tiles_x,
+            t_img=t_img, k_record=k_record, chunk=chunk)
+    if ids.device.type != 'cuda':
+        raise ValueError(f'no rasterize_compact kernel for device {ids.device}')
+    i32 = torch.int32
+    _check({**_feature_spec(mean2d, conic, color, opacity, ids),
+            'ncap': (ncap, i32, (t,)),
+            'acc0': (acc0, torch.float32, (t, P, 3)),
+            'trans0': (trans0, torch.float32, (t, P)),
+            'rec0': (rec0, i32, (t, P, k_record)),
+            **{name: (x, i32, (t, P)) for name, x in (
+                ('cnt0', cnt0), ('nsig0', nsig0), ('niter0', niter0),
+                ('itk0', itk0))},
+            'home': (home, i32, (t * P,)),
+            'n_live': (n_live, i32, ())}, ids.device)
+    _check_compact(chunk, (mean2d, conic, color, opacity, ids))
+    # lanes that are not live keep phase A's state: start from a copy
+    out = [x.clone() for x in (acc0, trans0, cnt0, nsig0, niter0)]
+    chunks = torch.zeros((t, 1), dtype=i32, device=ids.device)  # atomicMax target
+    if t:
+        lib = build.load('rasterize', _SIGNATURES)
+        with torch.cuda.device(ids.device):
+            code = lib.rasterize_compact_home_launch(
+                *[x.data_ptr() for x in (mean2d, conic, color, opacity, ids,
+                                         ncap, acc0, trans0, cnt0, nsig0,
+                                         niter0, itk0, home, n_live, *out,
+                                         chunks)],
+                t, k_total, tiles_x, t_img, k_record, chunk,
+                torch.cuda.current_stream(ids.device).cuda_stream)
+        build.check(lib, 'rasterize', code, 'rasterize_compact kernel')
+        LAUNCHES['rasterize_compact'] += 1
+    acc, trans, cnt, nsig, niter = out
+    return RasterState(acc=acc, trans=trans, record=rec0, rec_cnt=cnt,
+                       n_sig=nsig, n_iter=niter, iter_at_k=itk0, chunks=chunks)
