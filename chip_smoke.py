@@ -30,13 +30,20 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    calls it, and the explicit lanes of the JAX package's contract), with
    counters of what its lanes ask of it (``compact_counters``), and the
    CUDA route of ``ops.rasterize_resume_compacted`` against its plain route;
-   then two stress phases on seeded synthetic data, held exactly against
-   the plain versions: ``rasterize`` (all three modes, and resume with some
+   ``rc_lookup`` in its fused mode (the whole probe, as the path calls it)
+   against ``rc.lookup_all_groups_multi`` and in its lookup-only mode (the
+   TPU kernel's function) against ``rc_lookup_plain``, its kernel alone and
+   its wrapper timed in three rounds, with the counters of its LRU touch
+   (``probe_times``, ``probe_counters``); then
+   three stress phases on seeded synthetic data, held exactly against the
+   plain versions: ``rasterize`` (all three modes, and resume with some
    transmittances NaN) and ``rasterize_slots`` on tiles whose Gaussians sit
    on tile borders and on the edge of the cull's ellipse, with extreme
    conics (near-singular, non-finite) and opacities; ``rasterize_compact``
    in both modes on full-width lists, with lanes that start at their cap,
    NaN and floor transmittances, dead lanes and n_live 0, 1, 256, 257;
+   ``rc_lookup`` in both modes on cold, full and duplicate-way caches, hot
+   slots, both index modes, odd batch shapes and dead viewers;
 6. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
    + ``BatchedStepper``) serves 4 viewers of 12 frames each, arriving 2
    ticks apart, in 4 slots at the same size, once with one viewer per scene
@@ -97,7 +104,7 @@ def serve_kernels(pkg) -> list:
     """The serving tick's kernel wrappers, as ``patched`` targets."""
     return [(pkg.rk, 'rasterize_slots', 'rasterize_slots'),
             (pkg.rk, 'rasterize_compact_home', 'rasterize_compact'),
-            (pkg.ops, '_rc_lookup_kernel', 'rc_lookup')]
+            (pkg.ops, '_rc_probe_kernel', 'rc_lookup')]
 
 
 def fail(msg: str) -> None:
@@ -149,8 +156,9 @@ def patched(targets, wrap):
             setattr(owner, attr, fn)
 
 
-def capture_inputs(pkg, run_frame) -> dict:
-    """The arguments of each kernel wrapper's last call during one frame."""
+def capture_inputs(pkg, run_frame, targets=None) -> dict:
+    """The arguments of each kernel wrapper's last call during one frame
+    (or of each of ``targets``, ``patched`` targets)."""
     calls = {}
 
     def wrap(label, fn):
@@ -159,10 +167,12 @@ def capture_inputs(pkg, run_frame) -> dict:
             return fn(*args, **kwargs)
         return recorder
 
-    with patched([(pkg.rk, 'rasterize', 'rasterize'),
-                  (pkg.rk, 'rasterize_compact_home', 'rasterize_compact'),
-                  (pkg.ops, '_rc_lookup_kernel', 'rc_lookup'),
-                  (pkg.ops, 'rasterize_resume_compacted', 'resume')], wrap):
+    if targets is None:
+        targets = [(pkg.rk, 'rasterize', 'rasterize'),
+                   (pkg.rk, 'rasterize_compact_home', 'rasterize_compact'),
+                   (pkg.ops, '_rc_probe_kernel', 'rc_lookup'),
+                   (pkg.ops, 'rasterize_resume_compacted', 'resume')]
+    with patched(targets, wrap):
         run_frame()
     return calls
 
@@ -188,7 +198,7 @@ def stage_times(pkg, run_frame, reps: int) -> dict:
                (pkg.lp, '_prep_features', 'prep (reproject, gather)'),
                (pkg.ops, 'trim_features', 'trim'),
                (pkg.ops, 'rasterize_prefix', 'phase A (rasterize kernel)'),
-               (pkg.ops, 'rc_probe', 'probe (rc_lookup kernel + touch)'),
+               (pkg.ops, 'rc_probe', 'probe (fused rc_lookup kernel)'),
                (pkg.ops, 'rasterize_resume_compacted',
                 'phase B (compaction + rasterize_compact kernel)'),
                (pkg.ops.rc, 'insert_all_groups', 'insert')]
@@ -270,7 +280,7 @@ def print_pairs(name: str, pairs: dict) -> None:
 
 def kernel_phase(calls, pkg, launches, chunk: int) -> list:
     import torch
-    rk, rcl = pkg.rk, pkg.rcl
+    rk = pkg.rk
     rows = []
 
     # -- rasterize, prefix mode (phase A), as the main path calls it
@@ -324,7 +334,7 @@ def kernel_phase(calls, pkg, launches, chunk: int) -> list:
                             launches['rasterize_compact'], chunk, plain_reps=3))
     resume_route_check(pkg, pkg.ops.rasterize_resume_compacted, calls['resume'],
                        'ops.rasterize_resume_compacted')
-    rows.append(rc_lookup_row(rcl, calls['rc_lookup'], launches['rc_lookup']))
+    rows.append(rc_lookup_row(pkg, calls['rc_lookup'], launches['rc_lookup']))
     return rows
 
 
@@ -453,34 +463,198 @@ def resume_route_check(pkg, fn, call, label: str) -> None:
           f'exact, {int(got[2].sum())} chunks)', flush=True)
 
 
-def rc_lookup_row(rcl, call, launches: int, label: str = 'rc_lookup') -> dict:
-    """rc_lookup (the LuminCache probe) against its plain version on one
-    captured call."""
+def rc_lookup_row(pkg, call, launches: int, label: str = 'rc_lookup') -> dict:
+    """rc_lookup on one captured call of its fused probe (``rcl.rc_probe``,
+    as the path calls it): the fused mode against
+    ``rc.lookup_all_groups_multi`` (hit, value, way, and the cache's age and
+    clock exactly), the lookup-only mode (the TPU kernel's function) on the
+    slot-major batch against ``rc_lookup_plain``; then ``probe_times`` and
+    ``probe_counters``.  The row's times are the fused probe's: ``ms`` its
+    wrapper against ``bound_ms``, and ``kernel_ms`` its kernel alone against
+    ``kernel_bound_ms``."""
     import torch
-    args, _ = call
-    tags, values, ids_g, cfg = args
-    got = rcl.rc_lookup(*args)
-    want = rcl.rc_lookup_plain(*args)
-    for i, field in enumerate(('hit', 'value', 'set_idx', 'way')):
-        if not bool((got[i] == want[i]).all()):
-            fail(f'{label}: {field} differs from the plain version')
-    err = float((got[1] - want[1]).abs().max())
-    ms = time_ms(lambda: rcl.rc_lookup(*args), 20)
-    plain_ms = time_ms(lambda: rcl.rc_lookup_plain(*args), 5)
-    g, s, w, k = tags.shape
-    sets = torch.unique(got[2].long() + s * torch.arange(g, device=tags.device)[:, None])
-    nbytes = (ids_g.numel() * 4 + sets.numel() * w * (k + 3) * 4
-              + got[0].numel() * (1 + 12 + 4 + 4))
+    rc, rcl = pkg.ops.rc, pkg.rcl
+    cache, ids, cfg, live = probe_args(pkg, call)
+    hit, val, way, age, clock = rcl.rc_probe(cache.tags, cache.values, cache.age,
+                                             cache.clock, ids, cfg, live=live)
+    w_hit, w_val, _, w_way, w_cache = rc.lookup_all_groups_multi(cache, ids, cfg,
+                                                                 live=live)
+    for field, x, y in (('hit', hit, w_hit), ('value', val, w_val),
+                        ('way', way, w_way), ('age', age, w_cache.age),
+                        ('clock', clock, w_cache.clock)):
+        if not torch.equal(x, y.to(x.dtype)):
+            fail(f'{label}: fused {field} differs from rc.lookup_all_groups_multi')
+    ids_f = rc.slot_major(ids).contiguous()
+    got = rcl.rc_lookup(cache.tags, cache.values, ids_f, cfg)
+    want = rcl.rc_lookup_plain(cache.tags, cache.values, ids_f, cfg)
+    for field, x, y in zip(('hit', 'value', 'set_idx', 'way'), got, want):
+        if not torch.equal(x, y):
+            fail(f'{label}: lookup-only {field} differs from rc_lookup_plain')
+    times = probe_times(pkg, call, label)
+    plain_ms = time_ms(lambda: rc.lookup_all_groups_multi(cache, ids, cfg,
+                                                          live=live), 5)
+    g, s, w, k = cache.tags.shape
+    set_g = got[2].long() + s * torch.arange(g, device=ids.device)[:, None]
+    sets = torch.unique(set_g)
+    slot = set_g * w + got[3].long()
+    touched = got[0] if live is None else got[0] & rc.slot_major(
+        rc.viewer_live(live, ids.shape[:3]))
+    live_bytes = 0 if live is None else live.numel()
+    # the wrapper: ids, each probed set's tags and values, the outputs of
+    # lookup only (hit, value, set, way) or of the fused probe (hit, value,
+    # way; the copy of age read and written, clock read and written)
+    lookup_bytes = ids.numel() * 4 + sets.numel() * w * (k + 3) * 4
+    lookup_bound = (lookup_bytes + hit.numel() * (1 + 12 + 4 + 4)) / PEAK_BYTES_PER_S * 1e3
+    nbytes = (lookup_bytes + hit.numel() * (1 + 12 + 4) + age.numel() * 8
+              + clock.numel() * 8 + live_bytes)
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f'kernel {label}: exact, {ms:.4f} ms vs plain {plain_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms (bytes); ids {list(ids_g.shape)}, '
-          f'{int(got[0].sum())}/{got[0].numel()} hits, {sets.numel()} sets '
-          f'probed', flush=True)
+    # the fused kernel alone: ids, each probed set's tags, the chosen way's
+    # value, hit/value/way, each touched slot read and written, clock in and
+    # out (the age copy is the wrapper's)
+    kernel_bytes = (ids.numel() * 4 + sets.numel() * w * k * 4
+                    + torch.unique(slot).numel() * 12 + hit.numel() * (1 + 12 + 4)
+                    + torch.unique(slot[touched]).numel() * 8 + clock.numel() * 8
+                    + live_bytes)
+    kernel_bound_ms = kernel_bytes / PEAK_BYTES_PER_S * 1e3
+    ms = statistics.median(times['probe_wrapper_ms'])
+    kernel_ms = statistics.median(times['probe_kernel_ms'])
+    print(f'kernel {label}: exact (fused against rc.lookup_all_groups_multi, '
+          f'lookup only against rc_lookup_plain); fused {ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms (bytes); kernel alone {kernel_ms:.4f} ms, bound '
+          f'{kernel_bound_ms:.4f} ms (bytes); lookup only '
+          f'{statistics.median(times["lookup_wrapper_ms"]):.4f} ms, kernel '
+          f'alone {statistics.median(times["lookup_kernel_ms"]):.4f} ms, bound '
+          f'{lookup_bound:.4f} ms (bytes); plain {plain_ms:.4f} ms; ids '
+          f'{list(ids.shape)}, {int(hit.sum())}/{hit.numel()} hits, '
+          f'{sets.numel()} sets probed', flush=True)
+    probe_counters(pkg, call, label)
     return dict(name='rc_lookup', route='cuda',
                 source='src/repro_torch/kernels/csrc/rc_lookup.cu',
                 replaces='src/repro/kernels/rc_lookup.py:49',
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by='bytes', library_ms=None)
+                launches=launches, max_abs_err=float((val - w_val).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by='bytes',
+                library_ms=None, kernel_ms=kernel_ms,
+                kernel_bound_ms=kernel_bound_ms)
+
+
+class LaunchRecorder:
+    """Stands in for a loaded kernel library and records each ``*_launch``
+    call (the C entry and its ctypes arguments) on its way through."""
+
+    def __init__(self, lib):
+        self.lib, self.launches = lib, []
+
+    def __getattr__(self, attr):
+        fn = getattr(self.lib, attr)
+        if not attr.endswith('_launch'):
+            return fn
+
+        def record(*args):
+            self.launches.append((fn, args))
+            return fn(*args)
+        return record
+
+
+def kernel_alone(pkg, fn, reps: int = 50) -> tuple:
+    """The rc_lookup kernel alone, without its wrapper: ``fn`` runs once with
+    the loaded library replaced by a ``LaunchRecorder``, then its last
+    ctypes launch is made again ``reps`` times back to back, each between
+    two CUDA events.  Returns (median ms, what ``fn`` returned, which holds
+    the launch's buffers alive)."""
+    import torch
+    build = pkg.build
+    lib = build.load('rc_lookup', pkg.rcl._SIGNATURES)
+    rec = LaunchRecorder(lib)
+    build._LIBS['rc_lookup'] = rec
+    try:
+        out = fn()
+    finally:
+        build._LIBS['rc_lookup'] = lib
+    if not rec.launches:
+        fail('kernel_alone: the call made no rc_lookup launch')
+    launch, args = rec.launches[-1]
+    launch(*args)
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        code = launch(*args)
+        end.record()
+        if code:
+            fail(f'kernel_alone: the replayed launch returned CUDA error {code}')
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs), out
+
+
+def probe_args(pkg, call) -> tuple:
+    """A captured probe as (cache, viewer-major ids [V, G, B, k], cfg, live
+    or None), from a call of ``ops.rc_probe(cache, ids_g, cfg)``,
+    ``ops.rc_probe_multi(cache, ids, cfg, live=...)`` or
+    ``rcl.rc_probe(tags, values, age, clock, ids, cfg, live=...)``."""
+    rc = pkg.ops.rc
+    args, kw = call
+    if isinstance(args[0], rc.CacheState):
+        cache, ids, cfg = args[:3]
+        return cache, ids if ids.ndim == 4 else ids[None], cfg, kw.get('live')
+    tags, values, age, clock, ids, cfg = args
+    return (rc.CacheState(tags, values, age, clock),
+            ids if ids.ndim == 4 else ids[None], cfg, kw.get('live'))
+
+
+def probe_times(pkg, call, label: str, rounds: int = 3) -> dict:
+    """The LuminCache probe's times on one captured call, in ``rounds``
+    rounds of medians of 50 (CUDA events): the fused probe's kernel alone
+    and its wrapper (``rcl.rc_probe``), and the lookup-only mode's, on the
+    slot-major batch (``rcl.rc_lookup``)."""
+    rc, rcl = pkg.ops.rc, pkg.rcl
+    cache, ids, cfg, live = probe_args(pkg, call)
+    ids_f = rc.slot_major(ids).contiguous()
+    fused = lambda: rcl.rc_probe(cache.tags, cache.values, cache.age,  # noqa: E731
+                                 cache.clock, ids, cfg, live=live)
+    lookup = lambda: rcl.rc_lookup(cache.tags, cache.values, ids_f, cfg)  # noqa: E731
+    out = collections.defaultdict(list)
+    for _ in range(rounds):
+        out['probe_kernel_ms'].append(kernel_alone(pkg, fused)[0])
+        out['probe_wrapper_ms'].append(time_ms(fused, 50))
+        out['lookup_kernel_ms'].append(kernel_alone(pkg, lookup)[0])
+        out['lookup_wrapper_ms'].append(time_ms(lookup, 50))
+    print(f'probe times {label} (ms, {rounds} rounds of medians of 50; ids '
+          f'{list(ids.shape)}): ' + json.dumps(out), flush=True)
+    return out
+
+
+def probe_counters(pkg, call, label: str) -> dict:
+    """What the LRU touch asks of memory on one captured probe, printed only:
+    records that touch (hit and live) of all, distinct (group, set, way)
+    slots touched, the most touches of one slot, and the distinct slots
+    touched per warp of 32 consecutive records of the slot-major batch
+    (median and 90th percentile over warps that touch)."""
+    import torch
+    rc, rcl = pkg.ops.rc, pkg.rcl
+    cache, ids, cfg, live = probe_args(pkg, call)
+    ids_f = rc.slot_major(ids).contiguous()
+    hit, _, sidx, way = rcl.rc_lookup_plain(cache.tags, cache.values, ids_f, cfg)
+    touched = hit if live is None else hit & rc.slot_major(
+        rc.viewer_live(live, ids.shape[:3]))
+    g, s, w, _ = cache.tags.shape
+    slot = ((torch.arange(g, device=ids.device)[:, None] * s + sidx.long()) * w
+            + way.long())
+    hits = torch.bincount(slot[touched], minlength=g * s * w)
+    key = torch.where(touched, slot, -1).reshape(-1)
+    key = torch.cat([key, key.new_full((-key.numel() % 32,), -1)]).reshape(-1, 32)
+    ordered = key.sort(1).values
+    distinct = ((ordered[:, 1:] != ordered[:, :-1]).sum(1) + 1
+                - (ordered[:, 0] < 0).long())
+    distinct = distinct[(key >= 0).any(1)].float()
+    out = dict(records=int(touched.numel()), touched=int(touched.sum()),
+               distinct_slots=int((hits > 0).sum()), max_touches_one_slot=int(hits.max()),
+               warp_distinct_median=float(distinct.quantile(0.5)),
+               warp_distinct_p90=float(distinct.quantile(0.9)),
+               warps=int(distinct.numel()))
+    print(f'counters {label}: ' + json.dumps(out), flush=True)
+    return out
 
 
 def stress_features(pkg, gen, shape: tuple, tiles_x: int, chunk: int):
@@ -688,6 +862,96 @@ def compact_stress_phase(pkg) -> None:
           flush=True)
 
 
+def probe_stress_phase(pkg) -> None:
+    """rc_lookup in both modes on seeded synthetic caches and records, held
+    exactly against the plain versions: the lookup-only mode against
+    ``rc_lookup_plain`` and the fused probe against
+    ``rc.lookup_all_groups_multi`` (hit, value, way, age, clock).  Cases:
+    an all-miss (cold) cache, an all-hit cache, a mixed one whose sets hold
+    a tag in two ways (the first must win), hot slots hit by every record of
+    a block, both index modes, G*B not a multiple of the block, B = 1, one
+    and four viewers, live as [V] and [V, G] with dead viewers, and -1
+    padded records."""
+    import torch
+    rc, rcl = pkg.ops.rc, pkg.rcl
+    dev, i32 = DEVICE, torch.int32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = []
+    for mode in ('hash', 'bitconcat'):
+        cfg = rc.CacheConfig(n_sets=1024, n_ways=4, k=5, index_mode=mode)
+        for g, v, b in ((510, 4, 4096), (7, 1, 100), (33, 4, 1), (3, 2, 777)):
+            cases.append((cfg, g, v, b))
+    names = []
+    for cfg, g, v, b in cases:
+        # 64 records a group, a tenth of them -1 padded (fewer than k
+        # significant ids); whole blocks of one record (hot slots)
+        pool = torch.randint(0, 3000, (g, 64, cfg.k), generator=gen, device=dev,
+                             dtype=i32)
+        pad = torch.rand((g, 64, 1), generator=gen, device=dev) < 0.1
+        pool = torch.where(pad & (torch.arange(cfg.k, device=dev) >= 2), -1, pool)
+        pick = torch.randint(0, 64, (v, g, b), generator=gen, device=dev)
+        ids = torch.gather(pool[None].expand(v, -1, -1, -1), 2,
+                           pick[..., None].expand(-1, -1, -1, cfg.k))
+        hot = (torch.arange(v * g * b, device=dev) // 256 % 5 == 0).reshape(v, g, b)
+        ids = torch.where(hot[..., None], pool[None, :, :1, :].expand(v, -1, b, -1),
+                          ids).contiguous()
+        cold = rc.init_cache(g, cfg, device=dev)
+        full = rc.insert_all_groups_multi(
+            cold, ids, torch.rand((v, g, b, 3), generator=gen, device=dev),
+            torch.ones((v, g, b), dtype=torch.bool, device=dev), cfg)
+        # a record that found no room (more than W in a set) is replaced by
+        # its group's first record that did, so that every record hits
+        ids_f = rc.slot_major(ids)
+        hit_f = rcl.rc_lookup_plain(full.tags, full.values, ids_f, cfg)[0]
+        first = ids_f[torch.arange(g, device=dev), hit_f.int().argmax(1)]
+        ids = rc.slot_split(torch.where(hit_f[..., None], ids_f, first[:, None]),
+                            v).contiguous()
+        # the same tag in two ways of a set: copy way 0 into way 2 where set
+        # parity is odd, with another value, and age the cache at random
+        dup = torch.arange(cfg.n_sets, device=dev) % 2 == 1
+        tags = full.tags.clone()
+        tags[:, dup, 2] = tags[:, dup, 0]
+        values = torch.rand(full.values.shape, generator=gen, device=dev)
+        age = torch.randint(0, 1000, full.age.shape, generator=gen, device=dev,
+                            dtype=i32)
+        clock = torch.randint(1000, 5000, (g,), generator=gen, device=dev,
+                              dtype=i32)
+        mixed = rc.CacheState(tags, values, age, clock)
+        lives = [None, torch.tensor([True] + [False] * (v - 1), device=dev),
+                 torch.rand((v, g), generator=gen, device=dev) < 0.6]
+        for cname, cache in (('all-miss', cold), ('all-hit', full),
+                             ('duplicate ways', mixed)):
+            ids_f = rc.slot_major(ids).contiguous()
+            got = rcl.rc_lookup(cache.tags, cache.values, ids_f, cfg)
+            want = rcl.rc_lookup_plain(cache.tags, cache.values, ids_f, cfg)
+            label = f'stress rc_lookup[{cfg.index_mode}, G {g}, V {v}, B {b}, {cname}]'
+            for field, x, y in zip(('hit', 'value', 'set_idx', 'way'), got, want):
+                if not torch.equal(x, y):
+                    fail(f'{label}: lookup-only {field} differs from rc_lookup_plain')
+            if cname == 'all-miss' and bool(got[0].any()):
+                fail(f'{label}: a hit in a cold cache')
+            if cname == 'all-hit' and not bool(got[0].all()):
+                fail(f'{label}: a miss in a cache that holds every record')
+            for live in lives:
+                fused = rcl.rc_probe(cache.tags, cache.values, cache.age,
+                                     cache.clock, ids, cfg, live=live)
+                ref = rc.lookup_all_groups_multi(cache, ids, cfg, live=live)
+                ref = (ref[0], ref[1], ref[3], ref[4].age, ref[4].clock)
+                if v == 1:      # one viewer's ids as [G, B, k], as ops.rc_probe passes them
+                    one = rcl.rc_probe(cache.tags, cache.values, cache.age,
+                                       cache.clock, ids[0], cfg, live=live)
+                    fused = (*(x[None] for x in one[:3]), *one[3:])
+                for field, x, y in zip(('hit', 'value', 'way', 'age', 'clock'),
+                                       fused, ref):
+                    if not torch.equal(x, y.to(x.dtype)):
+                        fail(f'{label}, live {None if live is None else list(live.shape)}: '
+                             f'fused {field} differs from the plain probe')
+        names.append(f'{cfg.index_mode} G{g} V{v} B{b}')
+    print(f'stress: rc_lookup (lookup only and fused, all-miss, all-hit and '
+          f'duplicate-way caches, hot slots, -1 padded records, live None, [V] '
+          f'and [V, G]) exact on {", ".join(names)}', flush=True)
+
+
 def lumina_config(pkg, **overrides):
     c = pkg.CONFIG
     return pkg.lp.LuminaConfig(
@@ -820,14 +1084,15 @@ def serve_sessions(pkg, viewers_per_scene: int) -> list:
 
 
 def serve_run(pkg, scene, backend: str, viewers_per_scene: int, *,
-              check=None, capture=None) -> dict:
+              check=None, capture=None, targets=None) -> dict:
     """Serve the sessions through ``SessionManager`` + ``SyncDriver`` on one
     backend.  Every frame's image, hit count and sorted flag, and the
     cache's tags/age/clock after every tick, are recorded, or handed to
     ``check(tick, slot_frames, cache)``.  ``capture``, a dict, receives the
     arguments of each serving kernel's first call at CAPTURE_TICK, keyed by
-    the kernel's name.  The launch counts are set to 0 just before the run
-    and read just after."""
+    the kernel's name (``targets``: other ``patched`` targets to capture).
+    The launch counts are set to 0 just before the run and read just
+    after."""
     import torch
     cfg = lumina_config(pkg, backend=backend)
     sessions = serve_sessions(pkg, viewers_per_scene)
@@ -866,9 +1131,10 @@ def serve_run(pkg, scene, backend: str, viewers_per_scene: int, *,
             return fn(*args, **kwargs)
         return recorder
 
-    targets = [] if capture is None else [
-        *serve_kernels(pkg),
-        (pkg.ops, 'rasterize_resume_compacted_slots', 'resume')]
+    if targets is None:
+        targets = [] if capture is None else [
+            *serve_kernels(pkg),
+            (pkg.ops, 'rasterize_resume_compacted_slots', 'resume')]
     pkg.kernels.reset_launches()
     t0 = time.perf_counter()
     with patched(targets, wrap):
@@ -1015,7 +1281,7 @@ def serve_kernel_rows(pkg, capture, launches: dict, chunk: int) -> tuple:
                           label='rasterize_compact[serve]')
     resume_route_check(pkg, pkg.ops.rasterize_resume_compacted_slots,
                        capture['resume'], 'ops.rasterize_resume_compacted_slots')
-    lookup = rc_lookup_row(pkg.rcl, capture['rc_lookup'],
+    lookup = rc_lookup_row(pkg, capture['rc_lookup'],
                            launches['rc_lookup'], label='rc_lookup[serve]')
     return slots, compact, lookup
 
@@ -1060,19 +1326,10 @@ def slots_kernel_row(pkg, call, launches: int, chunk: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def main() -> int:
-    if not (HERE / 'src' / 'repro_torch').is_dir():
-        print('chip_smoke: src/repro_torch not found beside this script',
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(HERE / 'src'))
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device', file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def load_package(src: pathlib.Path):
+    """Import the ``repro_torch`` package under ``src`` and gather the
+    modules that the phases use."""
+    sys.path.insert(0, str(src.resolve()))
     import repro_torch.configs.lumina_3dgs as arch
     import repro_torch.core.metrics as metrics
     import repro_torch.core.pipeline as lp
@@ -1084,10 +1341,25 @@ def main() -> int:
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
     import repro_torch.serve as serve
-    pkg = types.SimpleNamespace(
+    return types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
-        orbit_trajectory=trajectory.orbit_trajectory)
+        orbit_trajectory=trajectory.orbit_trajectory, build=build)
+
+
+def main() -> int:
+    if not (HERE / 'src' / 'repro_torch').is_dir():
+        print('chip_smoke: src/repro_torch not found beside this script',
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pkg = load_package(HERE / 'src')
+    lp, build = pkg.lp, pkg.build
 
     t_start = time.perf_counter()
     print(f'card: {card_line()}', flush=True)
@@ -1123,16 +1395,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     stress_phase(pkg)
     compact_stress_phase(pkg)
+    probe_stress_phase(pkg)
 
     serve_launches, capture = serve_phase(pkg, scene)
     slots, compact, lookup = serve_kernel_rows(pkg, capture, serve_launches,
                                                cfg.shade_chunk)
     # rasterize_compact and rc_lookup run on both paths: their rows hold the
     # main path's call, and 'serve' holds the shared serving run's
-    serve_keys = ('launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                  'bound_by')
+    serve_keys = ('launches', 'max_abs_err', 'ms', 'kernel_ms', 'plain_ms',
+                  'bound_ms', 'kernel_bound_ms', 'bound_by')
     for row, srow in ((rows[1], compact), (rows[2], lookup)):
-        row['serve'] = {key: srow[key] for key in serve_keys}
+        row['serve'] = {key: srow[key] for key in serve_keys if key in srow}
     rows.insert(1, slots)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)

@@ -8,7 +8,7 @@ lookup kernels:
                              their saved state;
   * ``rasterize_resume_compacted`` — phase B over miss-compacted lanes,
                              addressed through their home pixels;
-  * ``rc_lookup`` / ``rc_probe``   — LuminCache probe (+ LRU touch);
+  * ``rc_probe(_multi)``   — LuminCache probe + LRU touch;
   * ``rasterize_with_rc``  — the cached-rasterization pipeline
                              (A -> lookup -> B -> insert), with the compute
                              savings realized at chunk granularity;
@@ -33,7 +33,7 @@ from ..core.groups import regroup, regroup_slots, ungroup, ungroup_slots
 from ..core.rasterize import P, RasterAux, chunk_caps, pad_tile_features
 from ..core.tiling import TILE, TileFeatures
 from . import rasterize as rk
-from .rc_lookup import rc_lookup as _rc_lookup_kernel
+from .rc_lookup import rc_probe as _rc_probe_kernel
 
 pad_features = pad_tile_features
 
@@ -222,38 +222,25 @@ def rasterize_resume_compacted(feats: TileFeatures, tiles_x: int,
     return colors, _to_aux(st), st.chunks
 
 
-def rc_lookup(cache: rc.CacheState, ids: torch.Tensor, cfg: rc.CacheConfig):
-    """LuminCache probe for all groups (ids [G, B, k]): (hit, value,
-    set_idx, way).  The cache is left untouched."""
-    return _rc_lookup_kernel(cache.tags, cache.values, ids.contiguous(), cfg)
-
-
 def rc_probe(cache: rc.CacheState, ids_g: torch.Tensor, cfg: rc.CacheConfig):
-    """Cache lookup + LRU touch for one viewer: the probe, then the touch as
-    a separate step.  Returns (hit_g, val_g, way_g, cache-with-touch)."""
-    hit_g, val_g, sidx_g, way_g = rc_lookup(cache, ids_g, cfg)
-    cache = rc.touch_all_groups(cache, ids_g, hit_g, way_g.long(), cfg,
-                                sidx=sidx_g.long())
-    return hit_g, val_g, way_g, cache
+    """Cache lookup + LRU touch for one viewer (``rc_probe_multi`` with V =
+    1): ids_g [G, B, k].  Returns (hit_g, val_g, way_g, cache-with-touch)."""
+    return rc_probe_multi(cache, ids_g, cfg)
 
 
 def rc_probe_multi(cache: rc.CacheState, ids: torch.Tensor,
                    cfg: rc.CacheConfig, live: torch.Tensor | None = None):
-    """Shared-cache probe for V viewers: ids [V, G, B, k], live [V] (or
-    [V, G]) bool.  Returns (hit [V,G,B], val [V,G,B,3], way [V,G,B],
-    cache-with-touch).  The viewer axis flattens slot-major into each
-    group's batch, so the LRU evolves in (slot, pixel) order and V == 1 is
-    ``rc_probe``; dead viewers probe without touching."""
-    v = ids.shape[0]
-    ids_f = rc.slot_major(ids).contiguous()
-    live_f = None
-    if live is not None:
-        live_f = rc.slot_major(rc.viewer_live(live, ids.shape[:3]))
-    hit_f, val_f, sidx_f, way_f = rc_lookup(cache, ids_f, cfg)
-    cache = rc.touch_all_groups(cache, ids_f, hit_f, way_f.long(), cfg,
-                                live=live_f, sidx=sidx_f.long())
-    return (rc.slot_split(hit_f, v), rc.slot_split(val_f, v),
-            rc.slot_split(way_f, v), cache)
+    """Shared-cache probe for V viewers: ids [V, G, B, k] (or [G, B, k] for
+    one viewer), live [V] (or [V, G]) bool.  Returns (hit [V,G,B], val
+    [V,G,B,3], way [V,G,B], cache-with-touch).  The viewer axis flattens
+    slot-major into each group's batch, so the LRU evolves in (slot, pixel)
+    order and V == 1 is ``rc_probe``; dead viewers probe without touching.
+    On the card the lookup and the touch are one launch that reads the ids
+    where they lie."""
+    hit, val, way, age, clock = _rc_probe_kernel(
+        cache.tags, cache.values, cache.age, cache.clock, ids.contiguous(), cfg,
+        live=live)
+    return hit, val, way, rc.CacheState(cache.tags, cache.values, age, clock)
 
 
 @dataclasses.dataclass(frozen=True)
