@@ -60,7 +60,24 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    all 4 lanes live, and each kernel is held against its plain version
    there and timed, as is the CUDA route of
    ``ops.rasterize_resume_compacted_slots`` against its plain route;
-7. print the total wall time, the ``{"kernels": [...]}`` line, then the
+7. serving state (``serve_state_phase``), at the same size on one scene of
+   4 slots: (a) 8 pace-2 viewers oversubscribe the 4 slots
+   (``oversubscribe=True``), on the kernel backend (launch counts set to 0
+   just before, read just after) and on the reference backend, with lane
+   swaps, sorted flags, hits, the sort log and the cache identical on every
+   tick, images within 128 ulps, and every viewer finished within 2 x
+   frames + 4 ticks; (b) the kernel run again, checkpointed every 4 ticks
+   through ``CheckpointManager`` under ``build/`` and killed at tick 9, is
+   restored into the reset stepper and must continue exactly as the
+   uninterrupted run (images ``torch.equal``, hits, flags, sort log, final
+   cache); (c) the shared 4-viewer run under one fault of each host kind
+   the sync driver reaches, on both backends: both drain with identical
+   decisions, the fault counters equal the fired events, the poisoned slot
+   is quarantined and the cache stays finite; then a NaN camera shades one
+   slot of a private stepper on both backends: both caches stay finite and
+   differ only where the kernel path inserts its black NaN-frame misses,
+   which the reference's NaN colors keep out (``nan_camera_check``);
+8. print the total wall time, the ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -70,11 +87,13 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import types
+import warnings
 
 HERE = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
@@ -97,6 +116,16 @@ GAUSSIANS, WIDTH, HEIGHT, FRAMES, SEED = 1_000_000, 1920, 1080, 12, 0
 # lanes live and no sort), and the serving kernels' inputs are captured at
 # tick 11 (all 4 lanes live, no sort, not profiled)
 VIEWERS, STAGGER, PROFILE_EVERY, CAPTURE_TICK = 4, 2, 10, 11
+# the serving-state phase: STATE_VIEWERS pace-2 viewers of STATE_FRAMES
+# frames oversubscribe the VIEWERS slots of one scene; the checkpointed run
+# saves every CKPT_EVERY ticks and is killed at KILL_TICK; the fault trace
+# holds one event of each kind the sync driver reaches, at distinct ticks
+STATE_VIEWERS, STATE_FRAMES, CKPT_EVERY, KILL_TICK = 8, FRAMES, 4, 9
+FAULT_EVENTS = (('plan_exc', 2, {}),
+                ('dispatch_transient', 3, {'count': 1}),
+                ('dispatch_persistent', 5, {}),
+                ('stall', 7, {'delay_s': 0.05}),
+                ('nan_poison', 9, {'slot': 1}))
 DEVICE = 'cuda'
 
 
@@ -1326,10 +1355,373 @@ def slots_kernel_row(pkg, call, launches: int, chunk: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def oversub_sessions(pkg) -> list:
+    """STATE_VIEWERS pace-2 sessions, all arriving at tick 0, each on its
+    own orbit (85 deg apart, so in its own pose cell), all on one scene."""
+    return [pkg.serve.ViewerSession(
+        sid=i, cams=pkg.orbit_trajectory(STATE_FRAMES, width=WIDTH,
+                                         height_px=HEIGHT,
+                                         start_deg=85.0 * i + 7.0,
+                                         device=DEVICE), pace=2)
+            for i in range(STATE_VIEWERS)]
+
+
+def state_manager(pkg, scene, backend: str, *, slots: int = VIEWERS,
+                  viewers_per_scene: int = VIEWERS, **mgr_kw) -> tuple:
+    """A ``BatchedStepper`` of one scene block and its ``SessionManager``."""
+    cam0 = pkg.orbit_trajectory(1, width=WIDTH, height_px=HEIGHT,
+                                device=DEVICE)[0]
+    stepper = pkg.serve.BatchedStepper(
+        scene, lumina_config(pkg, backend=backend), cam0, slots,
+        viewers_per_scene=viewers_per_scene, device=DEVICE)
+    return pkg.serve.SessionManager(stepper, slots, **mgr_kw), stepper
+
+
+def record_ticks(mgr, stepper) -> dict:
+    """Record every tick: each slot's (image, hits, sorted flag), the sort
+    log entry and the cache's tags/age/clock, keyed by the stepper's global
+    tick (which a restore carries over), and the lane swaps keyed by the
+    manager's tick."""
+    pixels = stepper.tiles_x * stepper.tiles_y * 256
+    rec = {'frames': {}, 'log': {}, 'caches': {}, 'switches': {}}
+    finish, apply = stepper.step_finish, mgr.apply_plan
+
+    def recording_finish(infl):
+        tick = stepper.global_tick - 1
+        out = finish(infl)
+        rec['frames'].update({
+            (tick, slot): (img, round(float(st.hit_rate) * pixels),
+                           float(st.sorted_this_frame))
+            for slot, (img, st, _) in out.items()})
+        rec['log'][tick] = dict(stepper.sort_log[-1])
+        c = stepper.shared.cache
+        rec['caches'][tick] = (c.tags.clone(), c.age.clone(), c.clock.clone())
+        return out
+
+    def recording_apply(plan):
+        rec['switches'][plan.tick] = plan.switches
+        apply(plan)
+
+    stepper.step_finish = recording_finish
+    mgr.apply_plan = recording_apply
+    return rec
+
+
+def drive(mgr, limit: int, until: int | None = None) -> float:
+    """The sync driver's loop (tick, evict, checkpoint) until the manager
+    drains or reaches tick ``until``; returns its wall seconds."""
+    import torch
+    t0 = time.perf_counter()
+    while not mgr.drained() and (until is None or mgr.tick < until):
+        mgr.run_tick()
+        mgr.evict_finished()
+        mgr.maybe_checkpoint()
+        if mgr.tick > limit:
+            fail(f'serving run did not drain in {limit} ticks')
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def compare_records(label: str, want: dict, got: dict, *, exact: bool,
+                    ticks=None) -> tuple:
+    """Hold ``got`` against ``want`` on every recorded tick (from tick
+    ``ticks`` on, when given): hits, sorted flags, sort log, cache and lane
+    swaps identical; images ``torch.equal`` when ``exact``, else within
+    ULPS.  Returns the largest image difference (absolute, ulps)."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    start = -1 if ticks is None else ticks
+    keep = {k: v for k, v in want['frames'].items() if k[0] >= start}
+    if sorted(got['frames']) != sorted(keep):
+        fail(f'{label}: rendered (tick, slot) pairs differ')
+    worst = [0.0, 0.0]
+    for key, (img, hits, flag) in keep.items():
+        g = got['frames'][key]
+        if (g[1], g[2]) != (hits, flag):
+            fail(f'{label}: tick {key[0]} slot {key[1]}: (hits, sorted) '
+                 f'{(g[1], g[2])} != {(hits, flag)}')
+        if exact and not bool(torch.equal(g[0], img)):
+            fail(f'{label}: tick {key[0]} slot {key[1]}: images differ')
+        if not ulp_close(g[0], img):
+            fail(f'{label}: tick {key[0]} slot {key[1]}: images differ by '
+                 f'more than {ULPS} ulps')
+        diff = (g[0] - img).abs()
+        scale = torch.clamp(torch.maximum(g[0].abs(), img.abs()), min=1.0)
+        worst[0] = max(worst[0], float(diff.max()))
+        worst[1] = max(worst[1], float((diff / (eps * scale)).max()))
+    for part in ('log', 'caches', 'switches'):
+        keep = {t: v for t, v in want[part].items() if t >= start}
+        if sorted(got[part]) != sorted(keep):
+            fail(f'{label}: {part} recorded on different ticks')
+        for t, v in keep.items():
+            same = (all(bool(torch.equal(x, y))
+                        for x, y in zip(v, got[part][t]))
+                    if part == 'caches' else v == got[part][t])
+            if not same:
+                fail(f'{label}: tick {t}: {part} differ')
+    return tuple(worst)
+
+
+def check_launched(label: str, launches: dict) -> None:
+    for name in ('rasterize_slots', 'rasterize_compact', 'rc_lookup'):
+        if launches[name] <= 0:
+            fail(f'{label}: kernel {name} was not launched')
+
+
+def serve_state_phase(pkg, scene) -> dict:
+    """(a) oversubscription, (b) kill and restore, (c) faults; see the
+    module docstring.  Returns the printed numbers."""
+    import torch
+    out = {}
+    # (a) oversubscribed, both backends
+    runs = {}
+    for backend in ('kernel', 'reference'):
+        mgr, stepper = state_manager(pkg, scene, backend, oversubscribe=True)
+        rec = record_ticks(mgr, stepper)
+        for sess in oversub_sessions(pkg):
+            mgr.submit(sess)
+        pkg.kernels.reset_launches()
+        wall = drive(mgr, 2 * STATE_FRAMES + 4)
+        launches = dict(pkg.kernels.LAUNCHES)
+        done = sorted(s.sid for s in mgr.finished)
+        if done != list(range(STATE_VIEWERS)) or any(
+                s.telemetry.frames != STATE_FRAMES for s in mgr.finished):
+            fail(f'oversub {backend}: finished {done} with frames '
+                 f'{[s.telemetry.frames for s in mgr.finished]}')
+        for (tick, slot), (img, _, _) in rec['frames'].items():
+            if tuple(img.shape) != (HEIGHT, WIDTH, 3) or \
+                    not bool(torch.isfinite(img).all()):
+                fail(f'oversub {backend}: tick {tick} slot {slot} image is '
+                     f'{tuple(img.shape)} or not finite')
+        oversub = mgr.metrics['serve.oversubscribed'].value
+        if oversub <= 0:
+            fail(f'oversub {backend}: no session was co-placed')
+        runs[backend] = dict(rec=rec, ticks=mgr.tick, wall=wall,
+                             log=list(stepper.sort_log), oversub=oversub,
+                             lat=sorted(t['latency_ms'] for t in mgr.tick_log
+                                        if t['tick'] > 0),
+                             launches=launches)
+        if backend == 'kernel':
+            check_launched('oversub', launches)
+            golden_cache = [x.clone() for x in (
+                stepper.shared.cache.tags, stepper.shared.cache.age,
+                stepper.shared.cache.clock)]
+        del mgr, stepper
+    worst = compare_records('oversub reference', runs['kernel']['rec'],
+                            runs['reference']['rec'], exact=False)
+    if runs['kernel']['log'] != runs['reference']['log']:
+        fail('oversub: the backends logged different sorts')
+    k = runs['kernel']
+    out['oversub'] = dict(ticks=k['ticks'],
+                          frames=STATE_VIEWERS * STATE_FRAMES,
+                          oversubscribed=k['oversub'],
+                          tick_ms_median=statistics.median(k['lat']),
+                          tick_ms_max=k['lat'][-1], wall_s=k['wall'],
+                          reference_wall_s=runs['reference']['wall'],
+                          launches=k['launches'])
+    print(f'serve_state oversub: {STATE_VIEWERS} pace-2 viewers x '
+          f'{STATE_FRAMES} frames on {VIEWERS} slots in {k["ticks"]} ticks '
+          f'(limit {2 * STATE_FRAMES + 4}); serve.oversubscribed '
+          f'{k["oversub"]}; reference backend identical on every tick (lane '
+          f'swaps, hits, sorted flags, sort_log, cache), images within '
+          f'{ULPS} ulps (largest difference {worst[0]!r}, {worst[1]!r} '
+          f'ulps x magnitude): ' + json.dumps(out['oversub']), flush=True)
+    golden = runs['kernel']['rec']
+    del runs
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (b) kill at KILL_TICK, restore, continue
+    ckdir = HERE / 'build' / 'serve_state_ckpt'
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr, stepper = state_manager(pkg, scene, 'kernel', oversubscribe=True)
+    ckpt = pkg.ckpt.CheckpointManager(ckdir, keep=3)
+    mgr.enable_checkpoints(ckpt, every=CKPT_EVERY)
+    for sess in oversub_sessions(pkg):
+        mgr.submit(sess)
+    saves, writes = [], []
+    save = ckpt.save
+
+    def timed_save(tree, **kw):
+        # save() first waits for the previous save's write (at most one in
+        # flight): time that wait apart from the copy to the host
+        t0 = time.perf_counter()
+        ckpt.wait()
+        t1 = time.perf_counter()
+        save(tree, **kw)
+        saves.append((kw['step'], (t1 - t0) * 1e3,
+                      (time.perf_counter() - t1) * 1e3))
+
+    def wrap(label, fn):
+        def timed_write(path, names, arrays, **kw):
+            t = time.perf_counter()
+            res = fn(path, names, arrays, **kw)
+            writes.append((kw['step'], sum(a.nbytes for a in arrays),
+                           time.perf_counter() - t))
+            return res
+        return timed_write
+
+    ckpt.save = timed_save
+    with patched([(pkg.ckpt, '_write', 'write')], wrap):
+        drive(mgr, 2 * STATE_FRAMES + 4, until=KILL_TICK)
+        if mgr.drained():
+            fail('checkpoint: the kill must land mid-run')
+        ckpt.wait()
+    extra = ckpt.manifest_extra(KILL_TICK - 1)
+    if extra is None or not extra['stepper']['stash'] \
+            or extra['stepper']['pool_cap'] <= 1:
+        fail(f'checkpoint at tick {KILL_TICK - 1} holds no stashed lane or '
+             f'grown pool')
+    del mgr
+    stepper.reset()
+    mgr = pkg.serve.SessionManager(stepper, VIEWERS, oversubscribe=True)
+    rec = record_ticks(mgr, stepper)
+    t = time.perf_counter()
+    restored = mgr.restore_serving(pkg.ckpt.CheckpointManager(ckdir),
+                                   oversub_sessions(pkg))
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if restored != KILL_TICK - 1:
+        fail(f'restore_serving returned {restored}, not {KILL_TICK - 1}')
+    pkg.kernels.reset_launches()
+    drive(mgr, 2 * STATE_FRAMES + 4)
+    launches = dict(pkg.kernels.LAUNCHES)
+    check_launched('restored run', launches)
+    compare_records('restored run', golden, rec, exact=True, ticks=restored)
+    c = stepper.shared.cache
+    if not all(bool(torch.equal(x, y)) for x, y in
+               zip((c.tags, c.age, c.clock), golden_cache)):
+        fail('restored run: final cache differs from the uninterrupted run')
+    shutil.rmtree(ckdir)
+    out['checkpoint'] = dict(
+        restored=restored, bytes=writes[-1][1],
+        save_wait_ms=[round(w, 3) for _, w, _ in saves],
+        save_ms=[round(ms, 3) for _, _, ms in saves],
+        write_s=[round(s_, 3) for _, _, s_ in writes], restore_s=restore_s,
+        launches=launches)
+    print(f'serve_state checkpoint: killed at tick {KILL_TICK}, restored '
+          f'tick {restored} with a stash and pool capacity '
+          f'{extra["stepper"]["pool_cap"]}; continuation equals the '
+          f'uninterrupted run bit for bit (images, hits, sorted flags, '
+          f'sort_log, cache): ' + json.dumps(out['checkpoint']), flush=True)
+    del mgr, stepper, golden, rec
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (c) faults, both backends
+    F = pkg.faults
+    trace = F.FaultTrace(seed=0, events=tuple(
+        F.FaultEvent(tick=t, kind=kind, **kw) for kind, t, kw in FAULT_EVENTS))
+    fault_runs = {}
+    for backend in ('kernel', 'reference'):
+        inj = F.FaultInjector(trace)
+        mgr, stepper = state_manager(pkg, scene, backend, injector=inj)
+        rec = record_ticks(mgr, stepper)
+        for sess in serve_sessions(pkg, VIEWERS):
+            mgr.submit(sess)
+        pkg.kernels.reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore', RuntimeWarning)
+            drive(mgr, 4 * FRAMES + VIEWERS * STAGGER)
+        launches = dict(pkg.kernels.LAUNCHES)
+        if backend == 'kernel':
+            check_launched('faults', launches)
+        if sorted(s.sid for s in mgr.finished) != list(range(VIEWERS)) or \
+                any(s.telemetry.frames != FRAMES for s in mgr.finished):
+            fail(f'faults {backend}: the run did not finish every frame')
+        fired = inj.fired_counts()
+        if fired != trace.counts() or inj.outstanding():
+            fail(f'faults {backend}: fired {fired}, outstanding '
+                 f'{inj.outstanding()}')
+        counted = {key[len('serve.faults{kind='):-1]: mgr.metrics[key].value
+                   for key in mgr.metrics.names()
+                   if key.startswith('serve.faults{')}
+        if counted != fired:
+            fail(f'faults {backend}: counters {counted} != fired {fired}')
+        quarantined = mgr.metrics['serve.quarantined'].value
+        if quarantined != fired['nan_poison']:
+            fail(f'faults {backend}: {quarantined} quarantined')
+        if not bool(torch.isfinite(stepper.shared.cache.values).all()):
+            fail(f'faults {backend}: non-finite values in the cache')
+        fault_runs[backend] = dict(
+            rec=rec, ticks=mgr.tick, fired=fired, quarantined=quarantined,
+            degraded=mgr.metrics['serve.degraded_ticks'].value,
+            retries=mgr.metrics['serve.retries'].value, launches=launches)
+        del mgr, stepper
+    worst = compare_records('faults reference', fault_runs['kernel']['rec'],
+                            fault_runs['reference']['rec'], exact=False)
+    k = fault_runs['kernel']
+    out['faults'] = {key: k[key] for key in ('ticks', 'fired', 'quarantined',
+                                             'degraded', 'retries',
+                                             'launches')}
+    print(f'serve_state faults: both backends drained with identical '
+          f'decisions (largest image difference {worst[0]!r}, {worst[1]!r} '
+          f'ulps x magnitude); counters equal the fired events: '
+          + json.dumps(out['faults']), flush=True)
+    del fault_runs
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    nan_camera_check(pkg, scene)
+    return out
+
+
+def nan_camera_check(pkg, scene) -> None:
+    """A NaN camera through the real shade of one private slot, after one
+    finite frame, on both backends (``tests/test_chaos.py``'s check at full
+    width).  Both caches must stay finite.  The backends differ on NaN input
+    as the JAX package's do (``tests/test_torch_faults.py`` holds each
+    against its JAX counterpart): the reference's raw colors are NaN, so
+    its insert gate keeps every miss out, while the kernel path skips the
+    non-significant pairs and shades a miss black, which it inserts under
+    the all -1 record.  So: the same hits and clock; the reference's tags
+    unchanged by the NaN frame; every slot where the backends' tags differ
+    holds the all -1 record and black in the kernel's cache; everywhere
+    else identical tags and ages and values within ULPS."""
+    import torch
+    cams = pkg.orbit_trajectory(2, width=WIDTH, height_px=HEIGHT,
+                                device=DEVICE)
+    got = {}
+    for backend in ('kernel', 'reference'):
+        _, stepper = state_manager(pkg, scene, backend, slots=1,
+                                   viewers_per_scene=1)
+        stepper.admit(0)
+        stepper.step({0: cams[0]})
+        before = stepper.shared.cache.tags.clone()
+        _, st, _ = stepper.step({0: pkg.faults.poison_camera(cams[1])})[0]
+        c = stepper.shared.cache
+        if not bool(torch.isfinite(c.values).all()):
+            fail(f'NaN camera ({backend}): non-finite values in the cache')
+        got[backend] = (c, before, float(st.hit_rate))
+        del stepper
+    (k, _, k_hit), (r, r_before, r_hit) = got['kernel'], got['reference']
+    if k_hit != r_hit or not torch.equal(k.clock, r.clock):
+        fail(f'NaN camera: hit rates {k_hit} / {r_hit} or clocks differ')
+    if not torch.equal(r.tags, r_before):
+        fail('NaN camera: the reference backend inserted a NaN frame miss')
+    moved = (k.tags != r.tags).any(-1)
+    if not (bool((k.tags[moved] == -1).all())
+            and bool((k.values[moved] == 0).all())):
+        fail('NaN camera: the kernel backend inserted other than black '
+             'under the all -1 record')
+    same = ~moved
+    if not (torch.equal(k.tags[same], r.tags[same])
+            and torch.equal(k.age[same], r.age[same])
+            and ulp_close(k.values[same], r.values[same])):
+        fail('NaN camera: the backends differ outside the black inserts')
+    print(f'serve_state NaN camera: both caches finite; hit rate {k_hit!r} '
+          f'on both; {int(moved.sum())} slots hold the kernel backend\'s '
+          f'black all -1 insert, every other slot identical (values within '
+          f'{ULPS} ulps)', flush=True)
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
     sys.path.insert(0, str(src.resolve()))
+    import repro_torch.checkpoint.manager as ckpt
     import repro_torch.configs.lumina_3dgs as arch
     import repro_torch.core.metrics as metrics
     import repro_torch.core.pipeline as lp
@@ -1341,10 +1733,12 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
     import repro_torch.serve as serve
+    import repro_torch.serve.faults as faults
     return types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
-        orbit_trajectory=trajectory.orbit_trajectory, build=build)
+        orbit_trajectory=trajectory.orbit_trajectory, build=build,
+        ckpt=ckpt, faults=faults)
 
 
 def main() -> int:
@@ -1407,6 +1801,9 @@ def main() -> int:
     for row, srow in ((rows[1], compact), (rows[2], lookup)):
         row['serve'] = {key: srow[key] for key in serve_keys if key in srow}
     rows.insert(1, slots)
+    del capture
+    torch.cuda.empty_cache()
+    serve_state_phase(pkg, scene)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

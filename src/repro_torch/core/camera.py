@@ -46,7 +46,7 @@ class Camera:
         return dataclasses.replace(self, **kw)
 
 
-_TENSOR_FIELDS = ('position', 'quat', 'fx', 'fy', 'cx', 'cy')
+TENSOR_FIELDS = ('position', 'quat', 'fx', 'fy', 'cx', 'cy')
 
 
 def stack_cameras(cams: list) -> Camera:
@@ -62,7 +62,7 @@ def stack_cameras(cams: list) -> Camera:
     if all(c.host_pose is not None for c in cams):
         host = tuple(np.stack([c.host_pose[i] for c in cams]) for i in (0, 1))
     return Camera(**{f: torch.stack([getattr(c, f) for c in cams])
-                     for f in _TENSOR_FIELDS},
+                     for f in TENSOR_FIELDS},
                   width=first.width, height=first.height, near=first.near,
                   far=first.far, host_pose=host)
 
@@ -75,8 +75,25 @@ def camera_at(cams: Camera, i) -> Camera:
         idx = i.cpu().numpy() if isinstance(i, torch.Tensor) else i
         host = (host[0][idx], host[1][idx])
     return dataclasses.replace(
-        cams, **{f: getattr(cams, f)[i] for f in _TENSOR_FIELDS},
+        cams, **{f: getattr(cams, f)[i] for f in TENSOR_FIELDS},
         host_pose=host)
+
+
+def camera_arrays(cam: Camera, copy: bool = True) -> dict:
+    """The camera's tensors by field name (copies unless ``copy`` is
+    False): what a saved serving state holds of a camera."""
+    return {f: getattr(cam, f).clone() if copy else getattr(cam, f)
+            for f in TENSOR_FIELDS}
+
+
+def camera_from_arrays(like: Camera, arrays: dict, device) -> Camera:
+    """``like``'s static fields with copies of the named tensors (or
+    arrays) on ``device``.  The host copy of the pose is read back from
+    them, so the scheduler keys pose cells from the pose the device holds."""
+    t = {f: torch.as_tensor(arrays[f]).to(device, copy=True)
+         for f in TENSOR_FIELDS}
+    host = tuple(t[f].cpu().numpy().copy() for f in ('position', 'quat'))
+    return dataclasses.replace(like, **t, host_pose=host)
 
 
 def _f32(x, device=None) -> torch.Tensor:

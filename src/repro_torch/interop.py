@@ -8,11 +8,14 @@ on the same inputs.  This module imports numpy, not JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .core.camera import Camera
+from .core.camera import TENSOR_FIELDS, Camera
 from .core.gaussians import GaussianScene
+from .core.projection import Projected
 from .core.radiance_cache import CacheState
 
 
@@ -44,3 +47,63 @@ def cache_from_numpy(tags, values, age, clock, *, device) -> CacheState:
                       values=tensor(np.asarray(values, np.float32), device=device),
                       age=tensor(np.asarray(age, np.int32), device=device),
                       clock=tensor(np.asarray(clock, np.int32), device=device))
+
+
+
+def _camera_arrays(cam, *, lane: bool, device) -> dict:
+    """A JAX camera's (or stacked cameras') pose tensors by name; ``lane``
+    gives a single camera the leading [1] axis of a one-slot stack."""
+    return {f: tensor(np.asarray(getattr(cam, f))[None] if lane
+                      else getattr(cam, f), device=device)
+            for f in TENSOR_FIELDS}
+
+
+def _private_arrays(priv, *, lane: bool, device) -> dict:
+    def ints(x):
+        x = np.asarray(x, np.int64)
+        return x[None] if lane else x.copy()
+    return {'prev_cam': _camera_arrays(priv.prev_cam, lane=lane,
+                                       device=device),
+            'frame_idx': ints(priv.frame_idx),
+            'cell_id': ints(priv.cell_id)}
+
+
+def serving_state_from_numpy(arrays, meta: dict, *, device) -> tuple:
+    """A JAX ``BatchedStepper.state_dict()`` as what the port's
+    ``BatchedStepper.load_state`` takes.
+
+    ``arrays`` is the JAX snapshot's arrays tree with numpy leaves (its
+    ``SceneShared`` with a [C, P] pool, ``ViewerPrivate`` and cameras,
+    read by attribute) and ``meta`` its JSON meta, whose keys the port's
+    meta shares.  The pool's stacked entries are split per (scene, entry),
+    each private lane loses its pool index (``meta['slot_pool']`` carries
+    it), the counters become int64 host arrays and a stashed lane becomes a
+    one-slot stack.  Returns ``(arrays, meta)``."""
+    sh = arrays['shared']
+    pool = sh.pool
+    c, p = np.asarray(sh.pool_cell).shape
+
+    def entry(ci, pi):
+        return {'proj': {f.name: tensor(np.asarray(
+                    getattr(pool.proj, f.name))[ci, pi], device=device)
+                    for f in dataclasses.fields(Projected)},
+                'indices': tensor(np.asarray(pool.lists.indices)[ci, pi],
+                                  device=device),
+                'count': tensor(np.asarray(pool.lists.count)[ci, pi],
+                                device=device)}
+
+    out = {
+        'cache': {f: tensor(getattr(sh.cache, f), device=device)
+                  for f in ('tags', 'values', 'age', 'clock')},
+        'pool': tuple(tuple(entry(ci, pi) for pi in range(p))
+                      for ci in range(c)),
+        'priv': _private_arrays(arrays['priv'], lane=False, device=device),
+        'slot_cams': _camera_arrays(arrays['slot_cams'], lane=False,
+                                    device=device),
+    }
+    if arrays.get('stash'):
+        out['stash'] = {
+            k: {'priv': _private_arrays(v['priv'], lane=True, device=device),
+                'cam': _camera_arrays(v['cam'], lane=True, device=device)}
+            for k, v in arrays['stash'].items()}
+    return out, dict(meta)

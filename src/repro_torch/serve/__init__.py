@@ -9,8 +9,10 @@ Layers, bottom up:
     ``step_finish``;
   * ``session``   — viewer sessions (``scene_id``, frame ``pace``) and the
     slot manager, whose tick is ``plan_tick`` / ``apply_plan`` /
-    ``observe_tick``;
+    ``observe_tick``, with slot oversubscription, the hardened device leg
+    and crash-consistent checkpoints (``repro_torch.checkpoint``);
   * ``events``    — ``TickPlan`` and the ``SyncDriver`` (virtual clock);
+  * ``faults``    — seeded, replayable fault traces and their injector;
   * ``traffic``   — replayable arrival traces with per-viewer pacing;
   * ``telemetry`` — per-session and per-tick rollups;
   * ``render``    — the CLI (``python -m repro_torch.serve.render``).

@@ -33,6 +33,10 @@ class TickPlan:
     sort_plan : the stepper's pose-cell sort plan
             (``BatchedStepper.plan_step``), or None for steppers without a
             host planning phase
+    switches : ``(slot, sid)`` lane swaps for oversubscribed slots: the
+            named (stashed) co-resident session becomes the slot's lane
+            occupant before this tick renders; the outgoing occupant is
+            stashed, or retired if it has finished
     """
 
     tick: int
@@ -40,6 +44,7 @@ class TickPlan:
     admit: tuple
     cams: dict
     sort_plan: object = None
+    switches: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +63,9 @@ class HostTiming:
 
 class SyncDriver:
     """Virtual-clock driver: plan -> apply -> step -> observe, inline, until
-    every submitted session has completed.  No wall clock enters the
-    control path."""
+    every submitted session has completed, with a checkpoint at each tick
+    boundary the manager asks for one.  No wall clock enters the control
+    path."""
 
     def __init__(self, mgr):
         self.mgr = mgr
@@ -72,6 +78,7 @@ class SyncDriver:
         while not mgr.drained():
             self.run_tick()
             mgr.evict_finished()
+            mgr.maybe_checkpoint()
             if mgr.tick >= max_ticks:
                 raise RuntimeError('serve loop did not drain')
         return mgr.finished

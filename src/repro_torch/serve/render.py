@@ -7,6 +7,8 @@ then prints per-session telemetry:
     PYTHONPATH=src python -m repro_torch.serve.render --viewers 4 --frames 24
     PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
         --viewers 2 --frames 3 --width 64 --gaussians 600
+    PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
+        --viewers 4 --viewers-per-scene 2 --pace 2 --oversubscribe
 
 Each scene's viewers orbit it from the scene's own start angle; the batched
 stepper advances all slots through one slot-batched shade per tick, and
@@ -18,10 +20,12 @@ from __future__ import annotations
 
 import argparse
 
+from ..checkpoint.manager import CheckpointManager
 from ..core.pipeline import LuminaConfig
 from ..data.scenes import structured_scene
 from ..data.trajectory import orbit_trajectory
 from ..device import resolve_device
+from . import faults as serve_faults
 from . import traffic
 from .session import SessionManager, ViewerSession
 from .stepper import BatchedStepper, SequentialStepper
@@ -62,7 +66,11 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
           backend: str = 'reference', profile_every: int = 0,
           viewers_per_scene: int = 1, arrivals: str = 'stagger',
           rate: float = 0.5, burst: int = 4, gap: int = 8, jitter: int = 0,
-          pace: int = 1, pace_jitter: int = 0, driver: str = 'sync',
+          pace: int = 1, pace_jitter: int = 0, oversubscribe: bool = False,
+          driver: str = 'sync', faults: str = '', fault_rate: float = 0.05,
+          fault_seed: int = 0, watchdog: float | None = None,
+          max_pending: int | None = None, checkpoint_dir: str | None = None,
+          checkpoint_every: int = 0, restore: bool = False,
           device=None, print_fn=print) -> dict:
     """Run the serving loop to completion; returns the aggregate rollup.
 
@@ -72,8 +80,19 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     many slots per scene so co-scene viewers share one radiance cache and
     pose-cell sort pool (batched engine only).  ``arrivals`` selects the
     traffic trace ('stagger' | 'poisson' | 'bursty', seeded by ``seed``);
-    ``driver`` the host loop ('sync', the virtual clock).  ``device``
-    defaults to the card.
+    ``driver`` the host loop ('sync', the virtual clock).
+    ``oversubscribe`` lets paced viewers whose render ticks never collide
+    share one physical slot (batched engine, ``viewers_per_scene`` >= 2 and
+    ``pace`` >= 2).  ``device`` defaults to the card.
+
+    ``faults`` turns on deterministic fault injection (``serve.faults``): a
+    comma list of fault kinds or ``'all'``, scheduled per tick at
+    ``fault_rate`` from ``fault_seed``.  ``watchdog`` bounds each tick's
+    finish (seconds) and ``max_pending`` the admission backlog (arrivals
+    past it are shed).  ``checkpoint_dir`` + ``checkpoint_every`` snapshot
+    the serving state every N ticks (atomic, crash-consistent:
+    ``repro_torch.checkpoint``); ``restore`` resumes from the newest
+    complete snapshot instead of starting cold.
     """
     if viewers < 1 or frames < 1:
         raise SystemExit('--viewers and --frames must be >= 1')
@@ -82,6 +101,13 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     if sequential and viewers_per_scene > 1:
         raise SystemExit('--viewers-per-scene > 1 needs the batched engine '
                          '(the sequential baseline is fully private state)')
+    if oversubscribe and (sequential or viewers_per_scene < 2):
+        raise SystemExit('--oversubscribe needs the batched engine with '
+                         '--viewers-per-scene >= 2 (co-residents interleave '
+                         'through a shared scene block)')
+    if oversubscribe and pace < 2:
+        raise SystemExit('--oversubscribe needs --pace >= 2: only paced '
+                         'viewers have the off ticks co-residents render in')
     dev = resolve_device(device)
     slots = slots or min(viewers, 8)
     # scene blocks are static: round slots up to whole blocks
@@ -97,6 +123,19 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
                               arrivals=trace.arrivals, paces=trace.paces,
                               device=dev)
     cam0 = sessions[0].cams[0]
+
+    injector = serve_faults.NULL
+    fault_trace = None
+    if faults:
+        kinds = serve_faults.KINDS if faults == 'all' else tuple(
+            k.strip() for k in faults.split(',') if k.strip())
+        # arm events across the expected run: last arrival + slowest
+        # viewer's frames, plus slack for degraded/shed ticks
+        horizon = int(max(trace.arrivals)) + frames * int(max(trace.paces)) + 4
+        fault_trace = serve_faults.make_trace(kinds, horizon, seed=fault_seed,
+                                              rate=fault_rate, slots=slots)
+        injector = serve_faults.FaultInjector(fault_trace)
+
     if sequential:
         stepper = SequentialStepper(scene, cfg, cam0, slots, device=dev)
     else:
@@ -104,10 +143,30 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
                                  profile_every=profile_every,
                                  viewers_per_scene=viewers_per_scene,
                                  device=dev)
-    mgr = SessionManager(stepper, slots)
-    for sess in sessions:
-        mgr.submit(sess)
+    mgr = SessionManager(stepper, slots, injector=injector,
+                         watchdog_s=watchdog, max_pending=max_pending,
+                         oversubscribe=oversubscribe)
+
+    ckpt = None
+    restored = None
+    if checkpoint_dir:
+        ckpt = CheckpointManager(checkpoint_dir, metrics=mgr.metrics)
+        if checkpoint_every:
+            mgr.enable_checkpoints(ckpt, checkpoint_every,
+                                   extra={'traffic': trace.to_dict()})
+        if restore:
+            restored = mgr.restore_serving(ckpt, sessions)
+            if restored is not None:
+                print_fn(f'-- restored serving state from tick {restored} '
+                         f'({checkpoint_dir})')
+    if restored is None:
+        for sess in sessions:
+            mgr.submit(sess)
     finished = mgr.run(driver=driver)
+    if ckpt is not None:
+        ckpt.wait()   # flush any in-flight background save
+    if injector.enabled:
+        serve_faults.account_unfired(injector, mgr.metrics)
 
     summaries = [s.telemetry.summary() for s in
                  sorted(finished, key=lambda s: s.sid)]
@@ -122,8 +181,18 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     agg['driver'] = driver
     agg['arrivals'] = arrivals
     agg['device'] = str(dev)
-    agg['pool_resizes'] = (mgr.metrics['pool.resizes'].value
-                           if 'pool.resizes' in mgr.metrics else 0)
+
+    def _counter(name: str) -> int:
+        return mgr.metrics[name].value if name in mgr.metrics else 0
+
+    agg['fault_rate'] = fault_rate if faults else 0.0
+    agg['faults_injected'] = sum(injector.fired_counts().values())
+    agg['degraded_ticks'] = _counter('serve.degraded_ticks')
+    agg['retries'] = _counter('serve.retries')
+    agg['quarantined'] = _counter('serve.quarantined')
+    agg['shed'] = _counter('serve.shed')
+    agg['oversubscribed'] = _counter('serve.oversubscribed')
+    agg['pool_resizes'] = _counter('pool.resizes')
     agg['mean_sorts_per_tick'] = roll['mean_sorts_per_tick']
     agg['max_sorts_per_tick'] = roll['max_sorts_per_tick']
     agg['tick_sort_ms'] = roll['mean_sort_ms']
@@ -164,6 +233,24 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
                  f"plan {agg['host_ms']:.2f} ms/tick, "
                  f"frame p50/p95 {agg.get('p50_frame_ms', 0.0):.1f}/"
                  f"{agg.get('p95_frame_ms', 0.0):.1f} ms")
+    if oversubscribe:
+        print_fn(f"-- oversubscription: {agg['oversubscribed']} sessions "
+                 f"co-placed onto occupied slots")
+    if injector.enabled:
+        fired = injector.fired_counts()
+        fired_s = ' '.join(f'{k}={v}' for k, v in sorted(fired.items())) \
+            or 'none'
+        out = injector.outstanding()
+        out_s = (' (unfired: '
+                 + ' '.join(f'{k}={v}' for k, v in sorted(out.items()))
+                 + ' — counted in serve.faults_unfired)') if out else ''
+        print_fn(f"-- faults (seed {fault_seed}, rate {fault_rate}, "
+                 f"{len(fault_trace.events)} scheduled): fired {fired_s}"
+                 f"{out_s}; unfired {sum(out.values())}, "
+                 f"retries {agg['retries']}, "
+                 f"degraded ticks {agg['degraded_ticks']}, "
+                 f"quarantined {agg['quarantined']}, "
+                 f"shed arrivals {agg['shed']}")
     return agg
 
 
@@ -212,8 +299,34 @@ def main(argv=None):
     ap.add_argument('--pace-jitter', type=int, default=0,
                     help='mix client rates: pace drawn from '
                          '[pace, pace + jitter] per viewer')
+    ap.add_argument('--oversubscribe', action='store_true',
+                    help='interleave paced viewers whose render ticks '
+                         'never collide through one physical slot (needs '
+                         '--viewers-per-scene >= 2 and --pace >= 2)')
     ap.add_argument('--driver', choices=('sync',), default='sync',
                     help='host loop: the sync virtual clock')
+    ap.add_argument('--faults', default='', metavar='KINDS',
+                    help="deterministic fault injection: comma list of "
+                         f"kinds from {serve_faults.KINDS} or 'all' "
+                         "(seeded by --fault-seed)")
+    ap.add_argument('--fault-rate', type=float, default=0.05,
+                    help='per-tick per-kind Bernoulli fault probability')
+    ap.add_argument('--fault-seed', type=int, default=0,
+                    help='fault trace seed (independent of --seed)')
+    ap.add_argument('--watchdog', type=float, default=None, metavar='SECONDS',
+                    help='bound each tick\'s device finish (default: '
+                         'unbounded unless faults are injected)')
+    ap.add_argument('--max-pending', type=int, default=None, metavar='N',
+                    help='admission backlog bound: arrivals past N pending '
+                         'sessions are shed instead of queued')
+    ap.add_argument('--checkpoint-dir', default=None, metavar='DIR',
+                    help='snapshot serving state to this directory '
+                         '(atomic, crash-consistent)')
+    ap.add_argument('--checkpoint-every', type=int, default=0, metavar='N',
+                    help='checkpoint cadence in ticks (0 = never)')
+    ap.add_argument('--restore', action='store_true',
+                    help='resume from the newest complete checkpoint in '
+                         '--checkpoint-dir instead of starting cold')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (the default) or 'cpu' for the plain "
@@ -228,8 +341,14 @@ def main(argv=None):
                  viewers_per_scene=args.viewers_per_scene,
                  arrivals=args.arrivals, rate=args.rate, burst=args.burst,
                  gap=args.gap, jitter=args.jitter, pace=args.pace,
-                 pace_jitter=args.pace_jitter, driver=args.driver,
-                 device=args.device)
+                 pace_jitter=args.pace_jitter,
+                 oversubscribe=args.oversubscribe, driver=args.driver,
+                 faults=args.faults, fault_rate=args.fault_rate,
+                 fault_seed=args.fault_seed, watchdog=args.watchdog,
+                 max_pending=args.max_pending,
+                 checkpoint_dir=args.checkpoint_dir,
+                 checkpoint_every=args.checkpoint_every,
+                 restore=args.restore, device=args.device)
 
 
 if __name__ == '__main__':

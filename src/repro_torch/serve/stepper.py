@@ -67,16 +67,19 @@ import torch
 from ..core import posecell
 from ..core import radiance_cache as rc
 from ..core.buckets import pow2_bucket
-from ..core.camera import Camera, camera_at, stack_cameras
+from ..core.camera import (Camera, camera_arrays, camera_at,
+                           camera_from_arrays, stack_cameras)
 from ..core.gaussians import GaussianScene
 from ..core.groups import regroup_slots, ungroup_slots
 from ..core.pipeline import (LuminaConfig, SceneShared, ViewerPrivate,
-                             batched_prep_features, batched_shade_phase,
+                             ViewerState, batched_prep_features,
+                             batched_shade_phase,
                              batched_sort_phase, init_fleet,
-                             init_viewer_private, init_viewer_state,
+                             init_viewer_state,
                              privates_at, render_step, stats_at,
                              trim_features_slots)
-from ..core.s2 import empty_sort_shared
+from ..core.projection import Projected
+from ..core.s2 import SortShared, empty_sort_shared
 from ..core.tiling import tile_grid
 from ..device import check_on, resolve_device
 from ..obs import metrics as obs_metrics
@@ -148,6 +151,55 @@ def _cache_rows(cache: rc.CacheState, idx) -> rc.CacheState:
                          cache.clock[idx])
 
 
+# -- the saved form of the serving state ------------------------------------
+# A saved state is nested dicts of tensors and numpy arrays (what
+# ``repro_torch.checkpoint`` flattens by name); the objects are rebuilt
+# around them from the stepper's own templates on load.
+
+_CACHE_FIELDS = ('tags', 'values', 'age', 'clock')
+
+
+def _take(copy: bool):
+    return torch.clone if copy else (lambda x: x)
+
+
+def _cache_arrays(cache: rc.CacheState, copy: bool) -> dict:
+    take = _take(copy)
+    return {f: take(getattr(cache, f)) for f in _CACHE_FIELDS}
+
+
+def _cache_from(arrays: dict, device) -> rc.CacheState:
+    return rc.CacheState(*(torch.as_tensor(arrays[f]).to(device, copy=True)
+                           for f in _CACHE_FIELDS))
+
+
+def _entry_arrays(entry: SortShared, copy: bool) -> dict:
+    take = _take(copy)
+    proj = entry.proj
+    return {'proj': {f.name: take(getattr(proj, f.name))
+                     for f in dataclasses.fields(proj)},
+            'indices': take(entry.lists.indices),
+            'count': take(entry.lists.count)}
+
+
+def _entry_from(empty: SortShared, arrays: dict, device) -> SortShared:
+    """A pool entry with ``empty``'s static fields and the saved tensors."""
+    def t(x):
+        return torch.as_tensor(x).to(device, copy=True)
+    return dataclasses.replace(
+        empty, proj=Projected(**{k: t(v) for k, v in arrays['proj'].items()}),
+        lists=dataclasses.replace(empty.lists, indices=t(arrays['indices']),
+                                  count=t(arrays['count'])))
+
+
+def _priv_arrays(priv: ViewerPrivate, copy: bool) -> dict:
+    """A slot-major ``ViewerPrivate`` without its pool index (the meta's
+    ``slot_pool`` carries that)."""
+    return {'prev_cam': camera_arrays(priv.prev_cam, copy),
+            'frame_idx': np.array(priv.frame_idx),
+            'cell_id': np.array(priv.cell_id)}
+
+
 class BatchedStepper:
     """All live slots advance in one scene-major ``batched_shade_phase``
     per tick (gathered to a dense scene or lane prefix when some are idle);
@@ -190,13 +242,16 @@ class BatchedStepper:
             scene, cfg, cam0, slots, viewers_per_scene=viewers_per_scene,
             pool_size=self.pool_cap)
         self._empty = self.shared.pool[0][0]
-        self._fresh_priv = init_viewer_private(cam0)
+        # the cold-start private lane (a copy of the fresh fleet's slot 0)
+        self._fresh_lane = privates_at(self.priv, [0])
         self._scene_of = np.arange(slots) // viewers_per_scene
         self._pool_owner = np.full((self.num_scenes, self.pool_cap), -1,
                                    np.int64)
-        # occupied slots (admit .. release): they hold pool references, so
-        # a paced-idle viewer's sort entry is never reclaimed
+        # occupied slots (admit .. release) and stashed co-resident viewer
+        # contexts (slot oversubscription): both hold pool references, so a
+        # paced-idle or stashed viewer's sort entry is never reclaimed
         self._resident: set[int] = set()
+        self._stash: dict[str, dict] = {}
 
         # observability: the SessionManager shares its tracer/registry
         self.tracer = obs_trace.NULL
@@ -225,8 +280,8 @@ class BatchedStepper:
         passes ``keep=None`` and pads: old entries keep their indices, new
         entries start free (cell -1, aged tick, zero refs; their payload is
         entry 0's, which nothing reads before a sort overwrites it).  The
-        bookkeeping and every slot's ``pool_idx`` move through the same
-        mapping."""
+        bookkeeping, every slot's ``pool_idx`` and the stashed lane contexts
+        move through the same mapping."""
         old = self.pool_cap
         c = self.num_scenes
         sh = self.shared
@@ -252,6 +307,9 @@ class BatchedStepper:
                                           pool_tick=tick, pool_refs=refs)
         self.priv = dataclasses.replace(
             self.priv, pool_idx=remap[self._scene_of, self.priv.pool_idx])
+        for ctx in self._stash.values():
+            ctx['slot_pool'] = int(
+                remap[int(self._scene_of[ctx['slot']]), ctx['slot_pool']])
         self._pool_owner = owner
         self.pool_cap = new_cap
         self.metrics.counter('pool.resizes',
@@ -270,8 +328,8 @@ class BatchedStepper:
 
     def _keep_entries(self) -> list:
         """Entries a shrink must preserve, per scene: referenced by any
-        resident lane, plus entries still adoptable (sorted within the
-        window by a still-resident owner)."""
+        resident lane (active, paced-idle or stashed), plus entries still
+        adoptable (sorted within the window by a still-resident owner)."""
         keep = [set() for _ in range(self.num_scenes)]
         sh = self.shared
         for ci in range(self.num_scenes):
@@ -291,11 +349,62 @@ class BatchedStepper:
         if target < self.pool_cap:
             self._resize_pool(target, keep=keep)
 
+    # -- slot residency / oversubscription ----------------------------------
+
     def release(self, slot: int) -> None:
         """The manager vacated ``slot``: its pool entry no longer counts as
         referenced, and the bucketed pool may reclaim the capacity."""
         self._resident.discard(slot)
         self._pending_sort.discard(slot)
+
+    def _lane_context(self, slot: int) -> dict:
+        """A copy of the slot's viewer context: its private lane (a
+        one-slot ``ViewerPrivate``), its last camera (stacked to one) and
+        its scheduler bookkeeping."""
+        return {
+            'slot': int(slot),
+            'priv': privates_at(self.priv, [slot]),
+            'cam': stack_cameras([self._slot_cams[slot]]),
+            'frames_since_due': int(self._frames_since_due[slot]),
+            'pending_sort': slot in self._pending_sort,
+            'slot_pool': int(self.priv.pool_idx[slot]),
+        }
+
+    def _put_lane(self, slot: int, lane: ViewerPrivate,
+                  pool_idx: int) -> None:
+        """Write a one-slot ``ViewerPrivate`` into ``slot`` in place, with
+        ``pool_idx`` as its pool index."""
+        self._write_prev_cams([slot], lane.prev_cam)
+        self.priv.frame_idx[slot] = lane.frame_idx[0]
+        self.priv.cell_id[slot] = lane.cell_id[0]
+        self.priv.pool_idx[slot] = pool_idx
+
+    def stash_lane(self, slot: int, key: str) -> None:
+        """Park the slot's viewer context under ``key`` so a co-resident
+        viewer can interleave into the same physical lane (slot
+        oversubscription).  The parked context keeps its pool reference: a
+        stashed viewer's sort entry is never reclaimed."""
+        self._stash[key] = self._lane_context(slot)
+        self._pending_sort.discard(slot)
+
+    def unstash_lane(self, slot: int, key: str) -> None:
+        """Swap a parked viewer context back into its physical lane."""
+        ctx = self._stash.pop(key)
+        if ctx['slot'] != slot:
+            raise ValueError(f'stash {key!r} belongs to slot '
+                             f'{ctx["slot"]}, not {slot}')
+        self._put_lane(slot, ctx['priv'], ctx['slot_pool'])
+        self._slot_cams[slot] = camera_at(ctx['cam'], 0)
+        self._frames_since_due[slot] = ctx['frames_since_due']
+        if ctx['pending_sort']:
+            self._pending_sort.add(slot)
+        else:
+            self._pending_sort.discard(slot)
+
+    def drop_stash(self, key: str) -> None:
+        """A stashed viewer was evicted: its parked context (and pool
+        reference) goes away."""
+        self._stash.pop(key, None)
 
     # -- per-kernel profiling ----------------------------------------------
 
@@ -375,6 +484,7 @@ class BatchedStepper:
         self._frames_since_due[:] = 0
         self._pending_sort.clear()
         self._resident.clear()
+        self._stash.clear()
         self.global_tick = 0
         self.sort_log = []
         self.last_timing = None
@@ -390,13 +500,6 @@ class BatchedStepper:
             getattr(pc, f)[idx] = getattr(cams, f)
         self.priv = dataclasses.replace(
             self.priv, prev_cam=dataclasses.replace(pc, host_pose=None))
-
-    def _set_priv_lane(self, slot: int, lane: ViewerPrivate) -> None:
-        """Write a single-viewer ``ViewerPrivate`` into ``slot`` in place."""
-        self._write_prev_cams([slot], stack_cameras([lane.prev_cam]))
-        self.priv.frame_idx[slot] = lane.frame_idx
-        self.priv.cell_id[slot] = lane.cell_id
-        self.priv.pool_idx[slot] = lane.pool_idx
 
     def admit(self, slot: int) -> None:
         """Reset ``slot`` to its cold-start state.  In private mode the
@@ -416,30 +519,54 @@ class BatchedStepper:
             self.shared = dataclasses.replace(sh, pool=tuple(pool))
             sh.pool_cell[scene_i] = -1
             sh.pool_tick[scene_i] = -self.window
-            sh.pool_refs[scene_i] = 0
+            # pool_refs keep their count until the next dispatch recounts
+            # them, as the JAX package's host mirror does
             self._pool_owner[scene_i] = -1
-        self._set_priv_lane(slot, self._fresh_priv)
+        self._put_lane(slot, self._fresh_lane, 0)
         self._frames_since_due[slot] = 0
         self._resident.add(slot)
         # the slot's camera is only known at the next step(): its
         # sort-on-admit runs there, outside the scheduled cohort
         self._pending_sort.add(slot)
 
-    def _due_scheduled(self, active: set, exclude: set) -> list[int]:
+    def quarantine(self, slot: int) -> None:
+        """Containment for a poisoned slot: its private state resets to the
+        cold-start template, any pool entry it owns is marked stale (owner
+        cleared, tick aged out of the window) so no co-located viewer adopts
+        it, its stashed co-residents re-sort on their return, and the slot
+        re-sorts on its next frame.  In private mode this is a full scene
+        cold-start; in shared mode the scene's cache persists (the
+        ``isfinite`` insert gate kept non-finite colors out of it)."""
+        scene_i = int(self._scene_of[slot])
+        if self.viewers_per_scene > 1:
+            owned = np.flatnonzero(self._pool_owner[scene_i] == slot)
+            self._pool_owner[scene_i, owned] = -1
+            self.shared.pool_tick[scene_i, owned] = -self.window
+        for ctx in self._stash.values():
+            if ctx['slot'] == slot:
+                ctx['pending_sort'] = True
+        self.admit(slot)
+        # the stacked camera batch reads _slot_cams every dispatch: a NaN
+        # lane must not linger past containment
+        self._slot_cams[slot] = self._cam0
+
+    def _due_scheduled(self, active: set, exclude: set,
+                       fsd=None) -> list[int]:
         """Slots due for a scheduled sort refresh this tick: the cohort
         residue (``global_tick % window == slot % window``), plus a
         staleness catch-up for frame-paced viewers: a slot is due when the
         frame it is about to render would otherwise be its ``window``-th
         since the last refresh.  For slots that render every tick the
         residue fires no later than the catch-up could."""
-        fsd = self._frames_since_due
+        fsd = self._frames_since_due if fsd is None else fsd
         r = self.global_tick % self.window
         return [i for i in range(self.slots)
                 if i in active and i not in exclude
                 and (i % self.window == r or fsd[i] >= self.window - 1)]
 
     def _plan_groups(self, due: list[int], active: set,
-                     cells: dict[int, int]) -> list[_SortGroup]:
+                     cells: dict[int, int], slot_pool=None,
+                     protect=()) -> list[_SortGroup]:
         """Group the due slots by (scene, pose cell), elect leaders, pick
         pool entries and decide which groups sort.
 
@@ -451,11 +578,14 @@ class BatchedStepper:
         fresh (sorted within the window) and owned by a still-active slot
         outside the group that is still in that cell.  Non-due active slots
         of the scene in the same cell ride along onto the group's entry
-        (riders do not count as sorted).  When every in-capacity entry is
+        (riders do not count as sorted).  Entries of stashed co-resident
+        contexts count as referenced too.  When every in-capacity entry is
         referenced, the dynamic pool allocates indices past ``pool_cap``;
-        ``_grow_pool_for`` resizes before the sorts land."""
+        ``_grow_pool_for`` resizes before the sorts land.  ``slot_pool``/
+        ``protect`` let ``plan_step`` substitute the entries after lane
+        swaps."""
         sh = self.shared
-        sp = self.priv.pool_idx
+        sp = self.priv.pool_idx if slot_pool is None else slot_pool
         groups: dict[tuple[int, int], list[int]] = {}
         for i in due:
             groups.setdefault((int(self._scene_of[i]), cells[i]),
@@ -471,9 +601,9 @@ class BatchedStepper:
             if i not in due and (int(self._scene_of[i]), cells[i]) \
                     not in groups:
                 refs[self._scene_of[i], sp[i]] += 1
-        for i in self._resident:
-            if i not in active and i not in self._pending_sort:
-                refs[self._scene_of[i], sp[i]] += 1
+        self._count_held(refs, sp, active)
+        for scene_i, p in protect:
+            refs[scene_i, p] += 1
         claimed: set[tuple[int, int]] = set()
         next_new: dict[int, int] = {}
         planned = []
@@ -547,11 +677,19 @@ class BatchedStepper:
         sp = self.priv.pool_idx
         for i in active:
             refs[self._scene_of[i], sp[i]] += 1
-        # paced-idle residents hold their entries across idle ticks
+        self._count_held(refs, sp, active)
+        self.shared = dataclasses.replace(self.shared, pool_refs=refs)
+
+    def _count_held(self, refs: np.ndarray, sp, active: set) -> None:
+        """Add to ``refs`` the entries held across idle ticks: by paced-idle
+        residents (slot entries ``sp``) and by stashed co-resident
+        contexts."""
         for i in self._resident:
             if i not in active and i not in self._pending_sort:
                 refs[self._scene_of[i], sp[i]] += 1
-        self.shared = dataclasses.replace(self.shared, pool_refs=refs)
+        for ctx in self._stash.values():
+            if not ctx['pending_sort']:
+                refs[self._scene_of[ctx['slot']], ctx['slot_pool']] += 1
 
     def _slot_cell_key(self, slot: int, cam: Camera) -> int:
         """Pose-cell key for a slot rendering ``cam``.  In private mode the
@@ -562,20 +700,43 @@ class BatchedStepper:
             return slot
         return posecell.pose_cell_key(cam)
 
-    def plan_step(self, cams: dict[int, Camera],
-                  pending_admits=()) -> _StepPlan:
+    def plan_step(self, cams: dict[int, Camera], pending_admits=(),
+                  lane_swaps=None) -> _StepPlan:
         """Pure host planning for a coming ``step(cams)``: pose-cell keys,
         the sort-on-admit set, the due cohort and the sort groups.  Reads
         only host state and mutates nothing.  ``pending_admits`` names
-        slots whose ``admit()`` is planned but not yet applied."""
+        slots whose ``admit()`` is planned but not yet applied.
+        ``lane_swaps`` maps slot -> stash key for oversubscribed lanes the
+        manager will swap before dispatch: the plan takes the incoming
+        context's pending flag, cadence and entry in place of the slot's,
+        and protects the outgoing occupant's entry (it is stashed, not
+        released) from the free-entry search."""
         active = set(cams)
         if not cams or not self.cfg.use_s2:
             return _StepPlan(frozenset(active), (), (), ())
         cells = {i: self._slot_cell_key(i, cams[i]) for i in active}
-        admits = sorted((self._pending_sort | set(pending_admits)) & active)
-        sched = self._due_scheduled(active, exclude=set(admits))
+        pending = set(self._pending_sort)
+        slot_pool = self.priv.pool_idx
+        fsd = self._frames_since_due
+        protect = []
+        if lane_swaps:
+            slot_pool = slot_pool.copy()
+            fsd = fsd.copy()
+            for slot, key in lane_swaps.items():
+                ctx = self._stash[key]
+                if slot not in self._pending_sort:
+                    protect.append((int(self._scene_of[slot]),
+                                    int(self.priv.pool_idx[slot])))
+                pending.discard(slot)
+                if ctx['pending_sort']:
+                    pending.add(slot)
+                slot_pool[slot] = ctx['slot_pool']
+                fsd[slot] = ctx['frames_since_due']
+        admits = sorted((pending | set(pending_admits)) & active)
+        sched = self._due_scheduled(active, exclude=set(admits), fsd=fsd)
         due = sorted(set(admits) | set(sched))
-        groups = self._plan_groups(due, active, cells)
+        groups = self._plan_groups(due, active, cells, slot_pool=slot_pool,
+                                   protect=protect)
         return _StepPlan(active=frozenset(active), admits=tuple(admits),
                          due=tuple(due), groups=tuple(groups))
 
@@ -835,6 +996,180 @@ class BatchedStepper:
                 float(m['state_reserved_bytes']))
         return m
 
+    # -- checkpoint/restore --------------------------------------------------
+
+    def _state_arrays(self, copy: bool) -> dict:
+        arrays = {
+            'cache': _cache_arrays(self.shared.cache, copy),
+            'pool': tuple(tuple(_entry_arrays(e, copy) for e in row)
+                          for row in self.shared.pool),
+            'priv': _priv_arrays(self.priv, copy),
+            'slot_cams': camera_arrays(stack_cameras(self._slot_cams),
+                                       copy=False),
+        }
+        if self._stash:
+            arrays['stash'] = {k: {'priv': _priv_arrays(ctx['priv'], copy),
+                                   'cam': camera_arrays(ctx['cam'], copy)}
+                               for k, ctx in self._stash.items()}
+        return arrays
+
+    def state_dict(self, copy: bool = True) -> tuple:
+        """``(arrays, meta)``: everything a bit-identical resume needs,
+        taken at a tick boundary.  ``arrays`` is nested dicts of tensors and
+        numpy arrays (the caches, every pool entry, the private lanes
+        without their pool index, the slots' last cameras and the stashed
+        lane contexts); ``meta`` holds the scheduler's bookkeeping as
+        JSON-able values, under the JAX package's keys.  Every tensor is a
+        clone, since the next tick writes the live state in place; with
+        ``copy=False`` the tensors are the live ones, for a caller that
+        copies them before the next tick (``CheckpointManager.save``)."""
+        sh = self.shared
+        meta = {
+            'global_tick': int(self.global_tick),
+            'pool_cap': int(self.pool_cap),
+            'pool_cell': sh.pool_cell.tolist(),
+            'pool_tick': sh.pool_tick.tolist(),
+            'pool_owner': self._pool_owner.tolist(),
+            'slot_pool': self.priv.pool_idx.tolist(),
+            'refs': sh.pool_refs.tolist(),
+            'frames_since_due': self._frames_since_due.tolist(),
+            'pending_sort': sorted(int(i) for i in self._pending_sort),
+            'resident': sorted(int(i) for i in self._resident),
+            'stash': {k: {'slot': int(ctx['slot']),
+                          'frames_since_due': int(ctx['frames_since_due']),
+                          'pending_sort': bool(ctx['pending_sort']),
+                          'slot_pool': int(ctx['slot_pool'])}
+                      for k, ctx in self._stash.items()},
+        }
+        return self._state_arrays(copy), meta
+
+    def _priv_from(self, arrays: dict, pool_idx) -> ViewerPrivate:
+        return ViewerPrivate(
+            prev_cam=camera_from_arrays(self._cam0, arrays['prev_cam'],
+                                        self.device),
+            frame_idx=np.array(arrays['frame_idx'], np.int64),
+            cell_id=np.array(arrays['cell_id'], np.int64),
+            pool_idx=np.array(pool_idx, np.int64))
+
+    def load_state(self, arrays, meta: dict) -> None:
+        """Restore a ``state_dict`` snapshot (or ``interop``'s form of the
+        JAX package's).  The tensors are copied onto the stepper's device,
+        so the next tick never writes into the caller's arrays; the pool
+        capacity is the snapshot's."""
+        dev = self.device
+        self.pool_cap = int(meta['pool_cap'])
+        self.shared = SceneShared(
+            cache=_cache_from(arrays['cache'], dev),
+            pool=tuple(tuple(_entry_from(self._empty, e, dev) for e in row)
+                       for row in arrays['pool']),
+            pool_cell=np.array(meta['pool_cell'], np.int64),
+            pool_refs=np.array(meta['refs'], np.int64),
+            pool_tick=np.array(meta['pool_tick'], np.int64))
+        self.priv = self._priv_from(arrays['priv'], meta['slot_pool'])
+        cam_b = camera_from_arrays(self._cam0, arrays['slot_cams'], dev)
+        self._slot_cams = [camera_at(cam_b, i) for i in range(self.slots)]
+        self.global_tick = int(meta['global_tick'])
+        self._pool_owner = np.array(meta['pool_owner'], np.int64)
+        self._frames_since_due = np.array(meta['frames_since_due'], np.int64)
+        self._pending_sort = {int(i) for i in meta['pending_sort']}
+        self._resident = {int(i) for i in meta['resident']}
+        self._stash = {}
+        for k, sm in meta['stash'].items():
+            sa = arrays['stash'][k]
+            self._stash[k] = {
+                'slot': int(sm['slot']),
+                'priv': self._priv_from(sa['priv'], [sm['slot_pool']]),
+                'cam': camera_from_arrays(self._cam0, sa['cam'], dev),
+                'frames_since_due': int(sm['frames_since_due']),
+                'pending_sort': bool(sm['pending_sort']),
+                'slot_pool': int(sm['slot_pool']),
+            }
+
+    def state_template(self, meta: dict) -> dict:
+        """An arrays tree shaped like a snapshot whose ``meta`` is given,
+        without touching the live state: a crashed run may have saved at
+        another pool capacity, or with stashed lanes.  Only shapes and
+        structure matter; the values are never read."""
+        arrays = self._state_arrays(copy=False)
+        empty = _entry_arrays(self._empty, copy=False)
+        arrays['pool'] = tuple((empty,) * int(meta['pool_cap'])
+                               for _ in range(self.num_scenes))
+        arrays.pop('stash', None)
+        if meta['stash']:
+            lane = {'priv': _priv_arrays(privates_at(self.priv, [0]), False),
+                    'cam': camera_arrays(stack_cameras([self._cam0]), False)}
+            arrays['stash'] = {k: lane for k in meta['stash']}
+        return arrays
+
+    # -- viewer extraction / injection ----------------------------------------
+
+    def extract_viewer(self, slot: int, with_scene: bool = False) -> dict:
+        """A copy of one viewer's lane for re-admission on another stepper:
+        its private lane, last camera and cadence, and with ``with_scene``
+        (private mode only) its whole scene block (cache, pool entries and
+        their bookkeeping), a warm move.  A scene-carry payload is valid
+        only for an aligned restore (the same slot on a stepper at the same
+        ``global_tick``): ``pool_owner`` holds slot ids and ``pool_tick``
+        absolute ticks."""
+        ctx = self._lane_context(slot)
+        payload = {'priv': ctx['priv'], 'cam': ctx['cam'],
+                   'frames_since_due': ctx['frames_since_due'],
+                   'pending_sort': ctx['pending_sort'],
+                   'shared': None, 'pool_rows': None}
+        if with_scene:
+            if self.viewers_per_scene != 1:
+                raise ValueError('scene-carry extraction needs a private '
+                                 'scene block (viewers_per_scene == 1)')
+            scene_i = int(self._scene_of[slot])
+            sh = self.shared
+            payload['shared'] = {
+                'cache': rc.CacheState(*(getattr(sh.cache, f)[scene_i].clone()
+                                         for f in _CACHE_FIELDS)),
+                'pool': sh.pool[scene_i]}
+            payload['pool_rows'] = {
+                'pool_cell': sh.pool_cell[scene_i].copy(),
+                'pool_tick': sh.pool_tick[scene_i].copy(),
+                'pool_owner': self._pool_owner[scene_i].copy(),
+                'slot_pool': ctx['slot_pool'],
+                'refs': sh.pool_refs[scene_i].copy(),
+            }
+        return payload
+
+    def restore_viewer(self, slot: int, payload: dict) -> None:
+        """Re-admit an ``extract_viewer`` payload into ``slot``: a
+        scene-carry payload restores the scene block and its bookkeeping
+        (bit-identical continuation under the alignment contract above); a
+        cold one admits the slot (fresh scene, sort-on-admit queued) and
+        then writes the private lane, so the viewer resumes its trajectory
+        against a cold cache."""
+        if payload.get('shared') is not None:
+            if self.viewers_per_scene != 1:
+                raise ValueError('scene-carry restore needs a private '
+                                 'scene block (viewers_per_scene == 1)')
+            scene_i = int(self._scene_of[slot])
+            sh = self.shared
+            block = payload['shared']
+            for f in _CACHE_FIELDS:
+                getattr(sh.cache, f)[scene_i] = getattr(block['cache'], f)
+            pool = list(sh.pool)
+            pool[scene_i] = tuple(block['pool'])
+            self.shared = dataclasses.replace(sh, pool=tuple(pool))
+            rows = payload['pool_rows']
+            sh.pool_cell[scene_i] = rows['pool_cell']
+            sh.pool_tick[scene_i] = rows['pool_tick']
+            sh.pool_refs[scene_i] = rows['refs']
+            self._pool_owner[scene_i] = rows['pool_owner']
+            self._put_lane(slot, payload['priv'], rows['slot_pool'])
+            self._frames_since_due[slot] = payload['frames_since_due']
+            if payload['pending_sort']:
+                self._pending_sort.add(slot)
+            else:
+                self._pending_sort.discard(slot)
+        else:
+            self.admit(slot)
+            self._put_lane(slot, payload['priv'], 0)
+        self._slot_cams[slot] = camera_at(payload['cam'], 0)
+
 
 class SequentialStepper:
     """Reference engine: one ``render_step`` per active slot, per-viewer
@@ -863,14 +1198,53 @@ class SequentialStepper:
         c = self._fresh.cache
         self._cache_bytes = sum(x.nbytes for x in (c.tags, c.values, c.age,
                                                    c.clock))
-        self._pool_entry_bytes = _entry_bytes(empty_sort_shared(
-            scene, cam0, margin=cfg.margin, capacity=cfg.capacity))
+        self._empty = empty_sort_shared(scene, cam0, margin=cfg.margin,
+                                        capacity=cfg.capacity)
+        self._pool_entry_bytes = _entry_bytes(self._empty)
 
     def admit(self, slot: int) -> None:
         self._states[slot] = self._fresh
 
     def release(self, slot: int) -> None:
         """No dynamic capacity to reclaim on the static engine."""
+
+    def quarantine(self, slot: int) -> None:
+        """Containment on the private engine is a full cold-start: every
+        piece of the slot's state (cache included) is its own."""
+        self.admit(slot)
+
+    def state_dict(self, copy: bool = True) -> tuple:
+        """``(arrays, meta)`` (see ``BatchedStepper.state_dict``): each
+        slot's cache, sort entry (the zero entry before its first sort, which
+        its first frame overwrites), entry tick, previous camera and frame
+        counter; no host bookkeeping to carry."""
+        arrays = {}
+        for i, st in enumerate(self._states):
+            sh, v = st.scene_shared, st.viewer
+            entry = sh.pool[0] if sh.pool[0] is not None else self._empty
+            arrays[f'slot{i}'] = {
+                'cache': _cache_arrays(sh.cache, copy),
+                'entry': _entry_arrays(entry, copy),
+                'pool_tick': np.array(sh.pool_tick[0], np.int64),
+                'prev_cam': camera_arrays(v.prev_cam, copy),
+                'frame_idx': np.array(v.frame_idx, np.int64)}
+        return arrays, {}
+
+    def load_state(self, arrays, meta: dict) -> None:
+        del meta
+        dev = self.device
+        self._states = []
+        for i in range(self.slots):
+            a = arrays[f'slot{i}']
+            shared = dataclasses.replace(
+                self._fresh.scene_shared, cache=_cache_from(a['cache'], dev),
+                pool=(_entry_from(self._empty, a['entry'], dev),),
+                pool_tick=(int(a['pool_tick']),))
+            viewer = dataclasses.replace(
+                self._fresh.viewer, frame_idx=int(a['frame_idx']),
+                prev_cam=camera_from_arrays(self._cam0, a['prev_cam'], dev))
+            self._states.append(ViewerState(scene_shared=shared,
+                                            viewer=viewer))
 
     def reset(self) -> None:
         """Cold-start every slot."""
