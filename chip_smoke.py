@@ -77,7 +77,29 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    slot of a private stepper on both backends: both caches stay finite and
    differ only where the kernel path inserts its black NaN-frame misses,
    which the reference's NaN colors keep out (``nan_camera_check``);
-8. print the total wall time, the ``{"kernels": [...]}`` line, then the
+8. real time (``realtime_phase``), at the same size on one scene of 4
+   slots, every run on the kernel backend with the launch counts set to 0
+   just before and read just after: (a) the shared run of phase 6 under
+   ``SyncDriver`` and then ``ThreadedDriver``, both traced, each equal to
+   phase 6's sync run bit for bit on every tick (images, hits, sorted
+   flags, sort log, cache); it prints both tick medians and loop walls,
+   each tick's ``host_ms`` and ``overlap_ms``, the ``host_overlap`` share,
+   the ticks where a worker ``plan_tick`` span overlaps a device ``shade``
+   span, the time from ``step_dispatch`` returning to ``step_finish``
+   returning, and the host syncs inside the tick-11 ``step_dispatch``
+   (``torch.cuda.set_sync_debug_mode('warn')``, by source line), and writes
+   the trace to ``build/realtime_trace.json``, checked by
+   ``validate_chrome_trace``; (b) phase 7's faults run plus a planner-worker
+   death and a worker ``plan_exc`` under the threaded driver with the plan
+   wait bounded at 2 s: it drains with every frame rendered, the counters
+   equal the fired events, no planner thread leaks, and every tick equals
+   phase 7's sync faults run; (c) ``partition_scene`` of the scene (cells
+   of 0.4, chunks of 64) streamed, FULL within 3 cells and LOD within 5,
+   through an unbounded arena under ``SyncDriver`` and through an arena
+   sized to the prefetch ring of the run's cameras under
+   ``ThreadedDriver``: every tick bit-identical, no stall after the first
+   tick, prefetch hits, fewer resident bytes than the scene's;
+9. print the total wall time, the ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -126,6 +148,21 @@ FAULT_EVENTS = (('plan_exc', 2, {}),
                 ('dispatch_persistent', 5, {}),
                 ('stall', 7, {'delay_s': 0.05}),
                 ('nan_poison', 9, {'slot': 1}))
+# the real-time phase: the shared run under the threaded driver; under the
+# faults run's events plus a planner-worker death and a worker plan_exc,
+# with the plan wait bounded at REALTIME_WATCHDOG_S; and streamed through a
+# device arena of the scene's pose-cell chunks (the JAX CLI's cells and
+# chunks; FULL within 3 cells of a camera and LOD within 5, as the JAX
+# package's streaming tests and benchmark hold them: at the orbit's radius
+# the CLI's 2 and 4 leave no chunk at FULL).  The streamed orbit starts at
+# 24 deg, where the cameras cross into a nearer grid cell at frame 3: an
+# orbit from 0 deg stays in one cell for all FRAMES frames, and its
+# residency would never change after the first tick.
+REALTIME_FAULTS = FAULT_EVENTS + (('worker_death', 4, {}),
+                                  ('plan_exc', 11, {}))
+REALTIME_WATCHDOG_S = 2.0
+STREAM_CELL, STREAM_CHUNK, STREAM_NEAR, STREAM_LOD = 0.4, 64, 3, 5
+STREAM_START_DEG = 24.0
 DEVICE = 'cuda'
 
 
@@ -1094,10 +1131,11 @@ def quality(pkg, scene, cams, records) -> None:
             fail(f'PSNR {min(dbs.values()):.2f} dB against the baseline')
 
 
-def serve_sessions(pkg, viewers_per_scene: int) -> list:
+def serve_sessions(pkg, viewers_per_scene: int,
+                   start_deg: float = 0.0) -> list:
     """VIEWERS sessions of FRAMES frames arriving STAGGER ticks apart; the
     viewers of a scene ride one orbit, and the scenes' orbits start 90 deg
-    apart."""
+    apart, from ``start_deg``."""
     orbits = {}
     sessions = []
     for sid in range(VIEWERS):
@@ -1105,7 +1143,7 @@ def serve_sessions(pkg, viewers_per_scene: int) -> list:
         if scene_id not in orbits:
             orbits[scene_id] = pkg.orbit_trajectory(
                 FRAMES, width=WIDTH, height_px=HEIGHT,
-                start_deg=90.0 * scene_id, device=DEVICE)
+                start_deg=90.0 * scene_id + start_deg, device=DEVICE)
         sessions.append(pkg.serve.ViewerSession(
             sid=sid, cams=orbits[scene_id], arrival_tick=sid * STAGGER,
             scene_id=scene_id))
@@ -1208,11 +1246,13 @@ def serve_summary(pkg, label: str, run: dict) -> dict:
 
 def serve_phase(pkg, scene) -> tuple:
     """Both serving modes on both backends; returns (the launch counts of
-    the shared kernel run, the serving kernels' inputs captured in it)."""
+    the shared kernel run, the serving kernels' inputs captured in it, the
+    shared kernel run's records: every tick's frames and cache, its sort
+    log and tick latencies, the oracle of ``realtime_phase``)."""
     import torch
     eps = torch.finfo(torch.float32).eps
     capture = {}
-    shared_launches = None
+    shared_launches = shared = None
     for label, vps in (('private', 1), ('shared', VIEWERS)):
         run = serve_run(pkg, scene, 'kernel', vps,
                         capture=capture if vps > 1 else None)
@@ -1262,13 +1302,19 @@ def serve_phase(pkg, scene) -> tuple:
               f'{ref["wall_s"]:.1f} s', flush=True)
         if vps == 1:
             single_viewer_oracle(pkg, scene, run)
+        else:
+            shared = dict(
+                frames=run['frames'], caches=run['caches'],
+                log=dict(enumerate(run['stepper'].sort_log)),
+                lat=sorted(t['latency_ms'] for t in run['mgr'].tick_log
+                           if t['tick'] > 0))
         del run, ref
         if DEVICE == 'cuda':
             torch.cuda.empty_cache()
     for name in [label for _, _, label in serve_kernels(pkg)] + ['resume']:
         if name not in capture:
             fail(f'{name} was not called at tick {CAPTURE_TICK}')
-    return shared_launches, capture
+    return shared_launches, capture, shared
 
 
 def single_viewer_oracle(pkg, scene, run) -> None:
@@ -1367,13 +1413,16 @@ def oversub_sessions(pkg) -> list:
 
 
 def state_manager(pkg, scene, backend: str, *, slots: int = VIEWERS,
-                  viewers_per_scene: int = VIEWERS, **mgr_kw) -> tuple:
-    """A ``BatchedStepper`` of one scene block and its ``SessionManager``."""
+                  viewers_per_scene: int = VIEWERS, streaming=None,
+                  **mgr_kw) -> tuple:
+    """A ``BatchedStepper`` of one scene block (streamed through
+    ``streaming`` when given) and its ``SessionManager``."""
     cam0 = pkg.orbit_trajectory(1, width=WIDTH, height_px=HEIGHT,
                                 device=DEVICE)[0]
     stepper = pkg.serve.BatchedStepper(
         scene, lumina_config(pkg, backend=backend), cam0, slots,
-        viewers_per_scene=viewers_per_scene, device=DEVICE)
+        viewers_per_scene=viewers_per_scene, streaming=streaming,
+        device=DEVICE)
     return pkg.serve.SessionManager(stepper, slots, **mgr_kw), stepper
 
 
@@ -1424,11 +1473,13 @@ def drive(mgr, limit: int, until: int | None = None) -> float:
 
 
 def compare_records(label: str, want: dict, got: dict, *, exact: bool,
-                    ticks=None) -> tuple:
+                    ticks=None,
+                    parts=('log', 'caches', 'switches')) -> tuple:
     """Hold ``got`` against ``want`` on every recorded tick (from tick
-    ``ticks`` on, when given): hits, sorted flags, sort log, cache and lane
-    swaps identical; images ``torch.equal`` when ``exact``, else within
-    ULPS.  Returns the largest image difference (absolute, ulps)."""
+    ``ticks`` on, when given): hits, sorted flags and the ``parts`` (sort
+    log, cache, lane swaps) identical; images ``torch.equal`` when
+    ``exact``, else within ULPS.  Returns the largest image difference
+    (absolute, ulps)."""
     import torch
     eps = torch.finfo(torch.float32).eps
     start = -1 if ticks is None else ticks
@@ -1450,7 +1501,7 @@ def compare_records(label: str, want: dict, got: dict, *, exact: bool,
         scale = torch.clamp(torch.maximum(g[0].abs(), img.abs()), min=1.0)
         worst[0] = max(worst[0], float(diff.max()))
         worst[1] = max(worst[1], float((diff / (eps * scale)).max()))
-    for part in ('log', 'caches', 'switches'):
+    for part in parts:
         keep = {t: v for t, v in want[part].items() if t >= start}
         if sorted(got[part]) != sorted(keep):
             fail(f'{label}: {part} recorded on different ticks')
@@ -1469,9 +1520,10 @@ def check_launched(label: str, launches: dict) -> None:
             fail(f'{label}: kernel {name} was not launched')
 
 
-def serve_state_phase(pkg, scene) -> dict:
+def serve_state_phase(pkg, scene) -> tuple:
     """(a) oversubscription, (b) kill and restore, (c) faults; see the
-    module docstring.  Returns the printed numbers."""
+    module docstring.  Returns the printed numbers and the kernel faults
+    run's records (the oracle of ``realtime_phase`` (b))."""
     import torch
     out = {}
     # (a) oversubscribed, both backends
@@ -1653,6 +1705,7 @@ def serve_state_phase(pkg, scene) -> dict:
     worst = compare_records('faults reference', fault_runs['kernel']['rec'],
                             fault_runs['reference']['rec'], exact=False)
     k = fault_runs['kernel']
+    fault_rec = k['rec']
     out['faults'] = {key: k[key] for key in ('ticks', 'fired', 'quarantined',
                                              'degraded', 'retries',
                                              'launches')}
@@ -1665,7 +1718,7 @@ def serve_state_phase(pkg, scene) -> dict:
         torch.cuda.empty_cache()
 
     nan_camera_check(pkg, scene)
-    return out
+    return out, fault_rec
 
 
 def nan_camera_check(pkg, scene) -> None:
@@ -1717,6 +1770,278 @@ def nan_camera_check(pkg, scene) -> None:
           f'{ULPS} ulps)', flush=True)
 
 
+def timed_dispatch(stepper, spans: list, syncs: dict) -> None:
+    """Wrap the stepper's ``step_dispatch``/``step_finish``: ``spans`` gets
+    each tick's (global tick, dispatch returned, finish returned) host
+    times, and the dispatch at CAPTURE_TICK runs under
+    ``torch.cuda.set_sync_debug_mode('warn')``, its synchronising calls
+    counted into ``syncs`` by source line."""
+    import torch
+    dispatch, finish = stepper.step_dispatch, stepper.step_finish
+    state = {}
+
+    def timed_dispatch_call(cams, plan=None):
+        tick = stepper.global_tick
+        if tick == CAPTURE_TICK and DEVICE == 'cuda':
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter('always')
+                    out = dispatch(cams, plan)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for w in caught:
+                if 'synchroniz' in str(w.message):
+                    key = f'{pathlib.Path(w.filename).name}:{w.lineno}'
+                    syncs[key] = syncs.get(key, 0) + 1
+        else:
+            out = dispatch(cams, plan)
+        state['tick'], state['t'] = tick, time.perf_counter()
+        return out
+
+    def timed_finish(infl):
+        out = finish(infl)
+        if infl is not None:
+            spans.append((state['tick'], state['t'], time.perf_counter()))
+        return out
+
+    stepper.step_dispatch, stepper.step_finish = timed_dispatch_call, \
+        timed_finish
+
+
+def realtime_run(pkg, scene, *, driver: str, streaming=None, tracer=None,
+                 injector=None, start_deg: float = 0.0) -> dict:
+    """The shared run (VIEWERS sessions on one scene block) under
+    ``driver`` on the kernel backend, every tick recorded
+    (``record_ticks``), dispatch and finish timed (``timed_dispatch``); the
+    launch counts are set to 0 just before and read just after."""
+    import torch
+    kw = {}
+    if injector is not None:
+        kw = dict(injector=injector, watchdog_s=REALTIME_WATCHDOG_S)
+    mgr, stepper = state_manager(pkg, scene, 'kernel', streaming=streaming,
+                                 tracer=tracer, **kw)
+    rec = record_ticks(mgr, stepper)
+    spans, syncs = [], {}
+    timed_dispatch(stepper, spans, syncs)
+    for sess in serve_sessions(pkg, VIEWERS, start_deg=start_deg):
+        mgr.submit(sess)
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        finished = mgr.run(driver=driver, max_ticks=4 * FRAMES + 20)
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pkg.kernels.LAUNCHES)
+    if sorted(s.sid for s in finished) != list(range(VIEWERS)) or any(
+            s.cursor != FRAMES for s in finished):
+        fail(f'realtime {driver}: not every frame was rendered')
+    return dict(rec=rec, mgr=mgr, stepper=stepper, launches=launches,
+                wall_s=wall, syncs=syncs,
+                finish_ms=[round((t2 - t1) * 1e3, 3)
+                           for _, t1, t2 in spans],
+                lat=sorted(t['latency_ms'] for t in mgr.tick_log
+                           if t['tick'] > 0))
+
+
+def realtime_phase(pkg, scene, shared: dict, fault_rec: dict) -> dict:
+    """(a) the shared run under ``ThreadedDriver``, held tick by tick
+    against the sync run of ``serve_phase`` (``shared``) bit for bit, with
+    its trace written and checked, and timed beside the same run under
+    ``SyncDriver`` with the same instrumentation (tracer, records, no
+    profiled ticks); (b) the faults run under the threaded
+    driver with a worker death and a worker plan_exc more, held against the
+    sync faults run (``fault_rec``); (c) the shared run streamed through an
+    unbounded arena (sync driver) and a budgeted one (threaded driver),
+    bit-identical.  Returns the printed numbers."""
+    import torch
+    out = {}
+    # (a) sync, then threaded, both traced
+    sync = realtime_run(pkg, scene, driver='sync', tracer=pkg.obs.Tracer())
+    check_launched('realtime sync', sync['launches'])
+    compare_records('realtime sync', shared, sync['rec'], exact=True,
+                    parts=('log', 'caches'))
+    tracer = pkg.obs.Tracer()
+    run = realtime_run(pkg, scene, driver='threaded', tracer=tracer)
+    check_launched('realtime threaded', run['launches'])
+    compare_records('realtime threaded', shared, run['rec'], exact=True,
+                    parts=('log', 'caches'))
+    mgr = run['mgr']
+    if mgr.tick != max(shared['log']) + 1:
+        fail(f'realtime threaded: {mgr.tick} ticks, the sync run took '
+             f'{max(shared["log"]) + 1}')
+    if 'serve.thread_leaks' in mgr.metrics:
+        fail('realtime threaded: a planner thread leaked')
+    roll = pkg.serve.tick_rollup(mgr.tick_log, warmup_ticks=1)
+    path = HERE / 'build' / 'realtime_trace.json'
+    path.parent.mkdir(exist_ok=True)
+    payload = pkg.obs.write_trace(str(path), tracer)
+    events = pkg.obs.validate_chrome_trace(
+        json.loads(path.read_text()))
+    lanes = {e['tid']: e['args']['name'] for e in events
+             if e['ph'] == 'M' and e['name'] == 'thread_name'}
+    per_track = collections.Counter(lanes[e['tid']] for e in events
+                                    if e['ph'] != 'M')
+    worker = [w for w in pkg.obs.track_spans(payload, 'host-worker')
+              if w[2] == 'plan_tick']
+    shades = [d for d in pkg.obs.track_spans(payload, 'device')
+              if d[2] == 'shade']
+    overlapped = sorted({d[3]['tick'] for d in shades for w in worker
+                         if max(w[0], d[0]) < min(w[1], d[1])})
+    if not worker or not shades:
+        fail('realtime threaded: the trace holds no worker plan or no '
+             'device shade span')
+    out['threaded'] = dict(
+        ticks=mgr.tick, tick_ms_median=statistics.median(run['lat']),
+        tick_ms_max=run['lat'][-1],
+        sync_tick_ms_median=statistics.median(sync['lat']),
+        sync_tick_ms_max=sync['lat'][-1],
+        serve_phase_tick_ms_median=statistics.median(shared['lat']),
+        wall_s=run['wall_s'], sync_wall_s=sync['wall_s'],
+        sync_host_ms_mean=pkg.serve.tick_rollup(
+            sync['mgr'].tick_log, warmup_ticks=1).get('host_ms'),
+        host_ms=[round(t['host_ms'], 4) for t in mgr.tick_log],
+        overlap_ms=[round(t['overlap_ms'], 4) for t in mgr.tick_log],
+        host_ms_mean=roll.get('host_ms'),
+        host_overlap=roll.get('host_overlap'),
+        ticks_worker_plan_over_shade=len(overlapped),
+        dispatch_to_finish_ms=run['finish_ms'],
+        dispatch_syncs_tick=CAPTURE_TICK,
+        dispatch_syncs=sum(run['syncs'].values()),
+        dispatch_sync_sites=run['syncs'],
+        trace_events=dict(per_track), trace_path=str(path.relative_to(HERE)),
+        launches=run['launches'])
+    print(f'realtime threaded: {VIEWERS} viewers x {FRAMES} frames under '
+          f'ThreadedDriver equal the sync run of serve_phase bit for bit on '
+          f'every tick (images, hits, sorted flags, sort_log, cache); trace '
+          f'valid: ' + json.dumps(out['threaded']), flush=True)
+    del run, sync, mgr, tracer, payload, events
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (b) threaded under faults
+    F = pkg.faults
+    trace = F.FaultTrace(seed=0, events=tuple(
+        F.FaultEvent(tick=t, kind=kind, **kw)
+        for kind, t, kw in REALTIME_FAULTS))
+    inj = F.FaultInjector(trace)
+    run = realtime_run(pkg, scene, driver='threaded', injector=inj)
+    check_launched('realtime faults', run['launches'])
+    mgr = run['mgr']
+    fired = inj.fired_counts()
+    if fired != trace.counts() or inj.outstanding():
+        fail(f'realtime faults: fired {fired}, outstanding '
+             f'{inj.outstanding()}')
+    counted = {key[len('serve.faults{kind='):-1]: mgr.metrics[key].value
+               for key in mgr.metrics.names()
+               if key.startswith('serve.faults{')}
+    if counted != fired:
+        fail(f'realtime faults: counters {counted} != fired {fired}')
+    degraded = mgr.metrics['serve.degraded_ticks'].value
+    if degraded < fired['worker_death']:
+        fail(f'realtime faults: {degraded} degraded ticks for '
+             f'{fired["worker_death"]} worker deaths')
+    if not bool(torch.isfinite(run['stepper'].shared.cache.values).all()):
+        fail('realtime faults: non-finite values in the cache')
+    if 'serve.thread_leaks' in mgr.metrics:
+        fail('realtime faults: a planner thread leaked')
+    compare_records('realtime faults', fault_rec, run['rec'], exact=True,
+                    parts=('log', 'caches'))
+    out['faults'] = dict(
+        ticks=mgr.tick, fired=fired, degraded=degraded,
+        watchdog=mgr.metrics['serve.watchdog'].value
+        if 'serve.watchdog' in mgr.metrics else 0,
+        quarantined=mgr.metrics['serve.quarantined'].value,
+        wall_s=run['wall_s'], launches=run['launches'])
+    print(f'realtime faults: drained with every frame rendered, counters '
+          f'equal the fired events, no planner thread leaked, and every '
+          f'tick equals the sync faults run bit for bit: '
+          + json.dumps(out['faults']), flush=True)
+    del run, mgr
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (c) streamed: unbounded arena (sync) and budgeted arena (threaded)
+    t0 = time.perf_counter()
+    chunked = pkg.scenes.partition_scene(scene, cell_size=STREAM_CELL,
+                                         chunk_cap=STREAM_CHUNK)
+    partition_s = time.perf_counter() - t0
+    positions = [c.host_pose[0] for c in pkg.orbit_trajectory(
+        FRAMES, width=WIDTH, height_px=HEIGHT, start_deg=STREAM_START_DEG,
+        device=DEVICE)]
+    live = int((pkg.scenes.chunk_levels(chunked, positions, STREAM_NEAR,
+                                        STREAM_LOD) > 0).sum())
+    # the prefetch ring: one cell further at each level
+    ring = int((pkg.scenes.chunk_levels(chunked, positions, STREAM_NEAR + 1,
+                                        STREAM_LOD + 1) > 0).sum())
+    frame_bytes = STREAM_CHUNK * pkg.scenes.BYTES_PER_GAUSSIAN
+    if not live < ring < chunked.num_chunks:
+        fail(f'stream: working set {live}, ring {ring} and partition '
+             f'{chunked.num_chunks} chunks leave no budget between them')
+    runs = {}
+    for label, budget, driver in (('unbounded', None, 'sync'),
+                                  ('budgeted', ring * frame_bytes,
+                                   'threaded')):
+        res = pkg.streaming.ResidencyManager(
+            chunked, near_radius=STREAM_NEAR, lod_radius=STREAM_LOD,
+            budget_bytes=budget, device=DEVICE)
+        tracer = pkg.obs.Tracer()
+        run = realtime_run(pkg, scene, driver=driver, streaming=res,
+                           tracer=tracer, start_deg=STREAM_START_DEG)
+        check_launched(f'stream {label}', run['launches'])
+        roll = pkg.serve.tick_rollup(run['mgr'].tick_log, warmup_ticks=1)
+        apply_ms = [e.dur * 1e3 for e in tracer.events
+                    if e.name == 'stream.apply']
+        run.update(res=res, roll=roll, apply_ms=apply_ms)
+        runs[label] = run
+        del tracer
+    compare_records('stream budgeted', runs['unbounded']['rec'],
+                    runs['budgeted']['rec'], exact=True,
+                    parts=('log', 'caches'))
+    b = runs['budgeted']
+    counters = b['res'].counters()
+    if b['roll'].get('stream_stalls_tail', 0) != 0:
+        fail(f'stream budgeted: {b["roll"]["stream_stalls_tail"]} stalls '
+             f'after warm-up')
+    if counters['prefetch_hits'] <= 0:
+        fail('stream budgeted: no prefetch hit')
+    if not b['res'].resident_bytes < chunked.scene_bytes:
+        fail(f'stream budgeted: {b["res"].resident_bytes} B resident, the '
+             f'scene holds {chunked.scene_bytes} B')
+    out['stream'] = dict(
+        chunks=chunked.num_chunks, live_chunks=live, ring_chunks=ring,
+        partition_s=partition_s, arena_bytes=b['res'].arena_bytes,
+        resident_bytes=b['res'].resident_bytes,
+        full_bytes=chunked.scene_bytes,
+        unbounded_arena_bytes=runs['unbounded']['res'].arena_bytes,
+        counters=counters,
+        unbounded_counters=runs['unbounded']['res'].counters(),
+        stalls_tail=b['roll'].get('stream_stalls_tail', 0),
+        tick_ms_median=statistics.median(b['lat']),
+        tick_ms_max=b['lat'][-1],
+        unbounded_tick_ms_median=statistics.median(
+            runs['unbounded']['lat']),
+        unstreamed_tick_ms_median=statistics.median(shared['lat']),
+        apply_ms=[round(x, 3) for x in b['apply_ms']],
+        unbounded_apply_ms=[round(x, 3) for x in runs['unbounded']['apply_ms']],
+        host_ms_mean=b['roll'].get('host_ms'),
+        unbounded_host_ms_mean=runs['unbounded']['roll'].get('host_ms'),
+        host_overlap=b['roll'].get('host_overlap'),
+        wall_s=b['wall_s'], unbounded_wall_s=runs['unbounded']['wall_s'],
+        launches=b['launches'])
+    print(f'realtime stream: partition_scene(cell {STREAM_CELL}, chunk '
+          f'{STREAM_CHUNK}); near {STREAM_NEAR}, lod {STREAM_LOD}; the '
+          f'budgeted arena under ThreadedDriver equals the unbounded arena '
+          f'under SyncDriver bit for bit on every tick: '
+          + json.dumps(out['stream']), flush=True)
+    del runs
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -1732,13 +2057,16 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
+    import repro_torch.obs as obs
     import repro_torch.serve as serve
     import repro_torch.serve.faults as faults
+    import repro_torch.serve.streaming as streaming
     return types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
         orbit_trajectory=trajectory.orbit_trajectory, build=build,
-        ckpt=ckpt, faults=faults)
+        ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
+        streaming=streaming)
 
 
 def main() -> int:
@@ -1791,7 +2119,7 @@ def main() -> int:
     compact_stress_phase(pkg)
     probe_stress_phase(pkg)
 
-    serve_launches, capture = serve_phase(pkg, scene)
+    serve_launches, capture, shared = serve_phase(pkg, scene)
     slots, compact, lookup = serve_kernel_rows(pkg, capture, serve_launches,
                                                cfg.shade_chunk)
     # rasterize_compact and rc_lookup run on both paths: their rows hold the
@@ -1803,7 +2131,12 @@ def main() -> int:
     rows.insert(1, slots)
     del capture
     torch.cuda.empty_cache()
-    serve_state_phase(pkg, scene)
+    _, fault_rec = serve_state_phase(pkg, scene)
+    t0 = time.perf_counter()
+    realtime_phase(pkg, scene, shared, fault_rec)
+    print(f'realtime phase took {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    del shared, fault_rec
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

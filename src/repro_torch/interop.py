@@ -17,6 +17,7 @@ from .core.camera import TENSOR_FIELDS, Camera
 from .core.gaussians import GaussianScene
 from .core.projection import Projected
 from .core.radiance_cache import CacheState
+from .data.scenes import ChunkedScene, SceneArrays
 
 
 def tensor(x, *, device) -> torch.Tensor:
@@ -40,6 +41,19 @@ def camera_from_numpy(position, quat, fx, fy, cx, cy, width: int, height: int,
                   fy=f32(fy), cx=f32(cx), cy=f32(cy), width=int(width),
                   height=int(height), near=float(near), far=float(far),
                   host_pose=host)
+
+
+def chunked_scene_from_numpy(packed, cells, fill, cell_size: float,
+                             chunk_cap: int, source_count: int) -> ChunkedScene:
+    """A JAX ``ChunkedScene`` (``packed``: its six packed fields in scene
+    order) as the port's.  The partition is host-side: numpy, no device."""
+    return ChunkedScene(
+        packed=SceneArrays(*(np.array(x, np.float32, copy=True)
+                             for x in packed)),
+        cells=np.array(cells, np.int64, copy=True),
+        fill=np.array(fill, np.int64, copy=True),
+        cell_size=float(cell_size), chunk_cap=int(chunk_cap),
+        source_count=int(source_count))
 
 
 def cache_from_numpy(tags, values, age, clock, *, device) -> CacheState:
@@ -78,7 +92,10 @@ def serving_state_from_numpy(arrays, meta: dict, *, device) -> tuple:
     meta shares.  The pool's stacked entries are split per (scene, entry),
     each private lane loses its pool index (``meta['slot_pool']`` carries
     it), the counters become int64 host arrays and a stashed lane becomes a
-    one-slot stack.  Returns ``(arrays, meta)``."""
+    one-slot stack.  A streamed snapshot's arena (``arrays['stream']``, a
+    scene of numpy fields) becomes the port's ``SceneArrays`` of tensors,
+    and its residency mirrors (``meta['stream']``) carry over as they are.
+    Returns ``(arrays, meta)``."""
     sh = arrays['shared']
     pool = sh.pool
     c, p = np.asarray(sh.pool_cell).shape
@@ -106,4 +123,9 @@ def serving_state_from_numpy(arrays, meta: dict, *, device) -> tuple:
             k: {'priv': _private_arrays(v['priv'], lane=True, device=device),
                 'cam': _camera_arrays(v['cam'], lane=True, device=device)}
             for k, v in arrays['stash'].items()}
+    if 'stream' in meta:
+        arena = arrays['stream']['arena']
+        out['stream'] = {'arena': SceneArrays(*(
+            tensor(getattr(arena, f), device=device)
+            for f in SceneArrays._fields))}
     return out, dict(meta)

@@ -11,13 +11,15 @@ Layers, bottom up:
     slot manager, whose tick is ``plan_tick`` / ``apply_plan`` /
     ``observe_tick``, with slot oversubscription, the hardened device leg
     and crash-consistent checkpoints (``repro_torch.checkpoint``);
-  * ``events``    — ``TickPlan`` and the ``SyncDriver`` (virtual clock);
+  * ``events``    — ``TickPlan``, the ``SyncDriver`` (virtual clock) and the
+    ``ThreadedDriver`` (host planning on a worker thread);
+  * ``streaming`` — pose-cell scene residency through a device arena;
   * ``faults``    — seeded, replayable fault traces and their injector;
   * ``traffic``   — replayable arrival traces with per-viewer pacing;
   * ``telemetry`` — per-session and per-tick rollups;
   * ``render``    — the CLI (``python -m repro_torch.serve.render``).
 """
-from .events import HostTiming, SyncDriver, TickPlan
+from .events import HostTiming, SyncDriver, ThreadedDriver, TickPlan
 from .session import SessionManager, ViewerSession
 from .stepper import BatchedStepper, SequentialStepper, TickTiming
 from .telemetry import SessionTelemetry, aggregate, format_table, tick_rollup
@@ -26,6 +28,6 @@ from .traffic import TrafficTrace, make_trace
 __all__ = [
     'BatchedStepper', 'SequentialStepper', 'SessionManager', 'TickTiming',
     'ViewerSession', 'SessionTelemetry', 'aggregate', 'format_table',
-    'tick_rollup', 'TickPlan', 'HostTiming', 'SyncDriver', 'TrafficTrace',
-    'make_trace',
+    'tick_rollup', 'TickPlan', 'HostTiming', 'SyncDriver', 'ThreadedDriver',
+    'TrafficTrace', 'make_trace',
 ]

@@ -9,6 +9,11 @@ then prints per-session telemetry:
         --viewers 2 --frames 3 --width 64 --gaussians 600
     PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
         --viewers 4 --viewers-per-scene 2 --pace 2 --oversubscribe
+    PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
+        --viewers 2 --frames 3 --width 64 --gaussians 600 \\
+        --driver threaded --trace-out build/trace.json
+    PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
+        --viewers 2 --frames 3 --width 64 --gaussians 600 --stream
 
 Each scene's viewers orbit it from the scene's own start angle; the batched
 stepper advances all slots through one slot-batched shade per tick, and
@@ -20,15 +25,17 @@ from __future__ import annotations
 
 import argparse
 
+from .. import obs
 from ..checkpoint.manager import CheckpointManager
 from ..core.pipeline import LuminaConfig
-from ..data.scenes import structured_scene
+from ..data.scenes import partition_scene, structured_scene
 from ..data.trajectory import orbit_trajectory
 from ..device import resolve_device
 from . import faults as serve_faults
 from . import traffic
 from .session import SessionManager, ViewerSession
 from .stepper import BatchedStepper, SequentialStepper
+from .streaming import ResidencyManager
 from .telemetry import aggregate, format_table, tick_rollup
 
 
@@ -67,10 +74,15 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
           viewers_per_scene: int = 1, arrivals: str = 'stagger',
           rate: float = 0.5, burst: int = 4, gap: int = 8, jitter: int = 0,
           pace: int = 1, pace_jitter: int = 0, oversubscribe: bool = False,
-          driver: str = 'sync', faults: str = '', fault_rate: float = 0.05,
-          fault_seed: int = 0, watchdog: float | None = None,
-          max_pending: int | None = None, checkpoint_dir: str | None = None,
-          checkpoint_every: int = 0, restore: bool = False,
+          driver: str = 'sync', trace_out: str | None = None,
+          metrics_out: str | None = None, faults: str = '',
+          fault_rate: float = 0.05, fault_seed: int = 0,
+          watchdog: float | None = None, max_pending: int | None = None,
+          checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+          restore: bool = False, stream: bool = False,
+          stream_budget: int = 0, stream_near: int = 2, stream_lod: int = 4,
+          stream_lod_frac: float = 0.5, stream_cell: float = 0.4,
+          stream_chunk: int = 64, stream_max_loads: int = 0,
           device=None, print_fn=print) -> dict:
     """Run the serving loop to completion; returns the aggregate rollup.
 
@@ -80,10 +92,16 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     many slots per scene so co-scene viewers share one radiance cache and
     pose-cell sort pool (batched engine only).  ``arrivals`` selects the
     traffic trace ('stagger' | 'poisson' | 'bursty', seeded by ``seed``);
-    ``driver`` the host loop ('sync', the virtual clock).
+    ``driver`` the host loop: 'sync' (the virtual clock, deterministic
+    replay) or 'threaded' (host planning on a worker thread, double-buffered
+    against the device step).
     ``oversubscribe`` lets paced viewers whose render ticks never collide
     share one physical slot (batched engine, ``viewers_per_scene`` >= 2 and
     ``pace`` >= 2).  ``device`` defaults to the card.
+
+    ``trace_out`` writes the run's span trace as Chrome trace-event JSON
+    (open in https://ui.perfetto.dev: host / host-worker / device tracks);
+    ``metrics_out`` writes the metrics registry's JSON snapshot.
 
     ``faults`` turns on deterministic fault injection (``serve.faults``): a
     comma list of fault kinds or ``'all'``, scheduled per tick at
@@ -93,6 +111,16 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     the serving state every N ticks (atomic, crash-consistent:
     ``repro_torch.checkpoint``); ``restore`` resumes from the newest
     complete snapshot instead of starting cold.
+
+    ``stream`` turns on pose-cell scene residency
+    (``repro_torch.serve.streaming``): the scene is partitioned into
+    cell-keyed chunks (``stream_cell`` cell size, ``stream_chunk``
+    Gaussians a chunk) and only the live cells' chunks stay on the device:
+    full detail within ``stream_near`` cells of a camera, a significance
+    prefix (``stream_lod_frac`` of each chunk) out to ``stream_lod`` cells.
+    ``stream_budget`` bounds the device arena in bytes (0: one frame per
+    chunk) and ``stream_max_loads`` the chunk loads a tick (0: unbounded;
+    misses beyond it stall only the missing viewer's slot).
     """
     if viewers < 1 or frames < 1:
         raise SystemExit('--viewers and --frames must be >= 1')
@@ -108,6 +136,9 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     if oversubscribe and pace < 2:
         raise SystemExit('--oversubscribe needs --pace >= 2: only paced '
                          'viewers have the off ticks co-residents render in')
+    if stream and sequential:
+        raise SystemExit('--stream needs the batched engine (residency is '
+                         'a property of the shared scene arena)')
     dev = resolve_device(device)
     slots = slots or min(viewers, 8)
     # scene blocks are static: round slots up to whole blocks
@@ -139,11 +170,21 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     if sequential:
         stepper = SequentialStepper(scene, cfg, cam0, slots, device=dev)
     else:
+        streaming = None
+        if stream:
+            streaming = ResidencyManager(
+                partition_scene(scene, cell_size=stream_cell,
+                                chunk_cap=stream_chunk),
+                near_radius=stream_near, lod_radius=stream_lod,
+                lod_frac=stream_lod_frac,
+                budget_bytes=stream_budget or None,
+                max_loads_per_tick=stream_max_loads or None, device=dev)
         stepper = BatchedStepper(scene, cfg, cam0, slots,
                                  profile_every=profile_every,
                                  viewers_per_scene=viewers_per_scene,
-                                 device=dev)
-    mgr = SessionManager(stepper, slots, injector=injector,
+                                 streaming=streaming, device=dev)
+    tracer = obs.Tracer() if trace_out else None
+    mgr = SessionManager(stepper, slots, tracer=tracer, injector=injector,
                          watchdog_s=watchdog, max_pending=max_pending,
                          oversubscribe=oversubscribe)
 
@@ -167,6 +208,16 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
         ckpt.wait()   # flush any in-flight background save
     if injector.enabled:
         serve_faults.account_unfired(injector, mgr.metrics)
+    if trace_out:
+        payload = obs.write_trace(trace_out, tracer)
+        obs.validate_chrome_trace(payload)
+        print_fn(f'-- trace: {len(tracer.events)} events -> {trace_out} '
+                 f'(load in https://ui.perfetto.dev)')
+    if metrics_out:
+        with open(metrics_out, 'w') as f:
+            f.write(mgr.metrics.to_json(indent=1))
+        print_fn(f'-- metrics: {len(mgr.metrics.names())} instruments -> '
+                 f'{metrics_out}')
 
     summaries = [s.telemetry.summary() for s in
                  sorted(finished, key=lambda s: s.sid)]
@@ -202,9 +253,13 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
                 'sort_pool_alloc_bytes', 'sort_pool_reserved_bytes',
                 'cache_bytes', 'state_bytes', 'state_alloc_bytes',
                 'state_reserved_bytes', 'p50_frame_ms', 'p95_frame_ms',
-                'host_ms', 'host_overlap'):
+                'host_ms', 'host_overlap', 'stream_resident_bytes',
+                'stream_arena_bytes', 'stream_full_bytes', 'stream_stalls',
+                'stream_stalls_tail', 'stream_loads',
+                'stream_prefetch_hits', 'stream_evictions'):
         if key in roll:
             agg[key] = roll[key]
+    agg['stream_budget'] = stream_budget if stream else 0
     print_fn(format_table(summaries))
     print_fn(f"-- {agg['mode']} ({backend}, {dev}): {agg['sessions']} "
              f"sessions, {agg['frames']} frames in {agg['ticks']} ticks, "
@@ -225,12 +280,24 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
                  f"{agg['state_alloc_bytes'] / 1e6:.1f} MB allocated, "
                  f"{agg.get('state_reserved_bytes', 0) / 1e6:.1f} MB static "
                  f"reservation){occ_s}")
+    if stream and 'stream_resident_bytes' in agg:
+        print_fn(f"-- streaming: "
+                 f"{agg['stream_resident_bytes'] / 1e6:.2f} MB resident "
+                 f"peak of {agg['stream_full_bytes'] / 1e6:.2f} MB scene "
+                 f"(arena {agg['stream_arena_bytes'] / 1e6:.2f} MB, budget "
+                 f"{stream_budget or 'unbounded'}); "
+                 f"{agg['stream_loads']} loads, "
+                 f"{agg['stream_prefetch_hits']} prefetch hits, "
+                 f"{agg['stream_evictions']} evictions, "
+                 f"{agg['stream_stalls']} stalls "
+                 f"({agg.get('stream_stalls_tail', 0)} post-warmup)")
     if roll['kernel_ms']:
         parts = '  '.join(f'{k} {v:.1f}' for k, v in roll['kernel_ms'].items())
         print_fn(f"-- shade stages (ms/tick, sampled): {parts}")
     if 'host_ms' in agg:
         print_fn(f"-- host pipeline ({driver}, {arrivals} arrivals): "
                  f"plan {agg['host_ms']:.2f} ms/tick, "
+                 f"overlap {agg.get('host_overlap', 0.0):.0%}, "
                  f"frame p50/p95 {agg.get('p50_frame_ms', 0.0):.1f}/"
                  f"{agg.get('p95_frame_ms', 0.0):.1f} ms")
     if oversubscribe:
@@ -303,8 +370,15 @@ def main(argv=None):
                     help='interleave paced viewers whose render ticks '
                          'never collide through one physical slot (needs '
                          '--viewers-per-scene >= 2 and --pace >= 2)')
-    ap.add_argument('--driver', choices=('sync',), default='sync',
-                    help='host loop: the sync virtual clock')
+    ap.add_argument('--driver', choices=('sync', 'threaded'), default='sync',
+                    help='host loop: sync (virtual clock, deterministic '
+                         'replay) or threaded (host planning double-buffered '
+                         'against the device step)')
+    ap.add_argument('--trace-out', default=None, metavar='PATH',
+                    help='write the run\'s span trace as Chrome trace-event '
+                         'JSON (open in https://ui.perfetto.dev)')
+    ap.add_argument('--metrics-out', default=None, metavar='PATH',
+                    help='write the typed metrics registry snapshot as JSON')
     ap.add_argument('--faults', default='', metavar='KINDS',
                     help="deterministic fault injection: comma list of "
                          f"kinds from {serve_faults.KINDS} or 'all' "
@@ -327,6 +401,26 @@ def main(argv=None):
     ap.add_argument('--restore', action='store_true',
                     help='resume from the newest complete checkpoint in '
                          '--checkpoint-dir instead of starting cold')
+    ap.add_argument('--stream', action='store_true',
+                    help='stream the scene through a device arena of '
+                         'pose-cell chunks (batched engine)')
+    ap.add_argument('--stream-budget', type=int, default=0, metavar='BYTES',
+                    help='device arena budget in bytes (0 = one frame per '
+                         'chunk, i.e. unbounded)')
+    ap.add_argument('--stream-near', type=int, default=2,
+                    help='grid cells around a camera held at full detail')
+    ap.add_argument('--stream-lod', type=int, default=4,
+                    help='grid cells around a camera held at LOD detail')
+    ap.add_argument('--stream-lod-frac', type=float, default=0.5,
+                    help='fraction of each chunk (significance prefix) '
+                         'loaded at LOD level')
+    ap.add_argument('--stream-cell', type=float, default=0.4,
+                    help='chunk grid cell size (world units)')
+    ap.add_argument('--stream-chunk', type=int, default=64,
+                    help='Gaussians per chunk')
+    ap.add_argument('--stream-max-loads', type=int, default=0,
+                    help='chunk loads per tick (0 = unbounded); misses '
+                         'beyond it stall only the missing viewer')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (the default) or 'cpu' for the plain "
@@ -343,12 +437,19 @@ def main(argv=None):
                  gap=args.gap, jitter=args.jitter, pace=args.pace,
                  pace_jitter=args.pace_jitter,
                  oversubscribe=args.oversubscribe, driver=args.driver,
+                 trace_out=args.trace_out, metrics_out=args.metrics_out,
                  faults=args.faults, fault_rate=args.fault_rate,
                  fault_seed=args.fault_seed, watchdog=args.watchdog,
                  max_pending=args.max_pending,
                  checkpoint_dir=args.checkpoint_dir,
                  checkpoint_every=args.checkpoint_every,
-                 restore=args.restore, device=args.device)
+                 restore=args.restore, stream=args.stream,
+                 stream_budget=args.stream_budget,
+                 stream_near=args.stream_near, stream_lod=args.stream_lod,
+                 stream_lod_frac=args.stream_lod_frac,
+                 stream_cell=args.stream_cell,
+                 stream_chunk=args.stream_chunk,
+                 stream_max_loads=args.stream_max_loads, device=args.device)
 
 
 if __name__ == '__main__':

@@ -17,9 +17,11 @@ A tick is three operations: ``plan_tick`` (pure planning), ``apply_plan``
 lock) and ``observe_tick`` (telemetry and cursor advance).  ``run_tick``
 composes them inline with the hardened device leg (``step_hardened``:
 dispatch with retry, finish under a watchdog, poison and containment, each
-a no-op under the NULL fault injector); ``run(driver='sync')`` drives ticks
-until every session has finished, checkpointing at tick boundaries when
-``enable_checkpoints`` asked for it.
+a no-op under the NULL fault injector); ``run(driver=...)`` hands the
+sequencing to a driver (``repro_torch.serve.events``: the virtual-clock
+``'sync'`` or the ``'threaded'`` one, whose worker plans tick t+1 while the
+device finishes tick t) until every session has finished, checkpointing at
+tick boundaries when ``enable_checkpoints`` asked for it.
 
 **Frame pacing**: a session with ``pace = p`` consumes one frame every
 ``p`` ticks counted from its admission; its slot stays occupied on the
@@ -869,5 +871,10 @@ class SessionManager:
 
     def run(self, max_ticks: int = 100_000,
             driver: str = 'sync') -> list[ViewerSession]:
-        """Drive ticks until every submitted session has completed."""
+        """Drive ticks until every submitted session has completed.
+
+        ``driver='sync'`` is the virtual-clock host loop (deterministic,
+        bit-identical replay); ``driver='threaded'`` double-buffers host
+        planning against the device step (``repro_torch.serve.events``).
+        """
         return get_driver(driver, self).run(max_ticks)

@@ -116,6 +116,7 @@ class _StepPlan(NamedTuple):
     admits: tuple        # slots sorting on admit (outside the cohort)
     due: tuple           # all slots consuming a sort refresh this step
     groups: tuple        # _SortGroup plan from the pose-cell scheduler
+    stream: object = None  # StreamPlan when scene residency is streamed
 
 
 class _InFlight(NamedTuple):
@@ -206,15 +207,29 @@ class BatchedStepper:
     speculative sorts run once per due (scene, pose-cell) group.
 
     ``device`` defaults to the card and raises when none is present; the
-    scene and cameras must lie on it."""
+    scene and cameras must lie on it.
+
+    ``streaming`` is a ``repro_torch.serve.streaming.ResidencyManager``:
+    the effective scene is then the manager's masked arena (the same shape
+    every tick), and each tick's residency is planned first in
+    ``plan_step`` and applied in ``step_dispatch``."""
 
     def __init__(self, scene: GaussianScene, cfg: LuminaConfig,
                  cam0: Camera, slots: int, profile_every: int = 0,
-                 viewers_per_scene: int = 1, *, device=None):
+                 viewers_per_scene: int = 1, *, streaming=None,
+                 device=None):
         if slots % viewers_per_scene:
             raise ValueError(f'slots ({slots}) must be a multiple of '
                              f'viewers_per_scene ({viewers_per_scene})')
         self.device = resolve_device(device)
+        self._streaming = streaming
+        if streaming is not None:
+            if streaming.grace_ticks is None:
+                # eviction grace must outlive any stale sorted tile list:
+                # one full sort window plus dispatch slack
+                streaming.grace_ticks = (max(1, cfg.window)
+                                         if cfg.use_s2 else 1) + 2
+            scene = streaming.scene()
         check_on(self.device, scene=scene.means, camera=cam0.position)
         self.scene = scene
         self.cfg = cfg
@@ -472,7 +487,10 @@ class BatchedStepper:
 
     def reset(self) -> None:
         """Cold-start every scene and viewer: fresh fleet state, pool
-        bookkeeping and tick counter."""
+        bookkeeping, tick counter and (streamed) an empty arena."""
+        if self._streaming is not None:
+            self._streaming.reset()
+            self.scene = self._streaming.scene()
         self.pool_cap = 1
         self.shared, self.priv = init_fleet(
             self.scene, self.cfg, self._cam0, self.slots,
@@ -710,10 +728,25 @@ class BatchedStepper:
         manager will swap before dispatch: the plan takes the incoming
         context's pending flag, cadence and entry in place of the slot's,
         and protects the outgoing occupant's entry (it is stashed, not
-        released) from the free-entry search."""
+        released) from the free-entry search.
+
+        With streaming, residency is planned first: slots stalled on a
+        missing chunk drop out of the tick (no render, no sort, cursor
+        retried), so the scheduling sees only the slots that will run.
+        Pending admits are named so that their cold-start loads are exempt
+        from the per-tick load budget."""
+        stream = None
+        if self._streaming is not None and cams:
+            admit_guess = ((set(self._pending_sort) | set(pending_admits))
+                           & set(cams))
+            stream = self._streaming.plan(self.global_tick, cams,
+                                          admit_guess)
+            if stream.stalled:
+                cams = {s: c for s, c in cams.items()
+                        if s not in stream.stalled}
         active = set(cams)
         if not cams or not self.cfg.use_s2:
-            return _StepPlan(frozenset(active), (), (), ())
+            return _StepPlan(frozenset(active), (), (), (), stream)
         cells = {i: self._slot_cell_key(i, cams[i]) for i in active}
         pending = set(self._pending_sort)
         slot_pool = self.priv.pool_idx
@@ -738,7 +771,19 @@ class BatchedStepper:
         groups = self._plan_groups(due, active, cells, slot_pool=slot_pool,
                                    protect=protect)
         return _StepPlan(active=frozenset(active), admits=tuple(admits),
-                         due=tuple(due), groups=tuple(groups))
+                         due=tuple(due), groups=tuple(groups), stream=stream)
+
+    def _apply_stream(self, stream) -> None:
+        """Execute a residency plan (evictions, loads, render mask) and take
+        the streamed scene for this tick's shade.  The manager publishes
+        through this stepper's registry and tracer, re-pointed every call
+        because the session installs its tracer after construction."""
+        mgr = self._streaming
+        mgr.metrics = self.metrics
+        mgr.tracer = self.tracer
+        mgr.apply(stream)
+        if mgr.dirty:
+            self.scene = mgr.scene()
 
     def step_dispatch(self, cams: dict[int, Camera],
                       plan: Optional[_StepPlan] = None):
@@ -780,6 +825,20 @@ class BatchedStepper:
     def _dispatch(self, cams: dict[int, Camera], plan: Optional[_StepPlan]):
         if plan is None:
             plan = self.plan_step(cams)
+        if plan.stream is not None:
+            self._apply_stream(plan.stream)
+            if plan.stream.stalled:
+                # a stalled slot renders nothing this tick: no output, so
+                # its cursor stays and the frame retries next tick
+                cams = {s: c for s, c in cams.items()
+                        if s not in plan.stream.stalled}
+            if not cams:
+                # every requested slot stalled: the loads above still ran,
+                # so the retried tick makes progress
+                self.global_tick += 1
+                self.sort_log.append({'scheduled': 0, 'admit': 0,
+                                      'joined': 0})
+                return None
         for slot, cam in cams.items():
             self._slot_cams[slot] = cam
         cam_b = stack_cameras(self._slot_cams)
@@ -986,6 +1045,18 @@ class BatchedStepper:
             'state_alloc_bytes': pool_alloc + self._cache_bytes,
             'state_reserved_bytes': pool_reserved + self._cache_bytes,
         }
+        if self._streaming is not None:
+            mgr = self._streaming
+            cnt = mgr.counters()
+            m.update({
+                'stream_resident_bytes': mgr.resident_bytes,
+                'stream_arena_bytes': mgr.arena_bytes,
+                'stream_full_bytes': mgr.chunked.scene_bytes,
+                'stream_stalls': cnt['stalls'],
+                'stream_loads': cnt['loads'],
+                'stream_prefetch_hits': cnt['prefetch_hits'],
+                'stream_evictions': cnt['evictions'],
+            })
         self.metrics.gauge(
             'state.alloc_bytes',
             'device bytes backing live serving state').set(
@@ -1011,6 +1082,8 @@ class BatchedStepper:
             arrays['stash'] = {k: {'priv': _priv_arrays(ctx['priv'], copy),
                                    'cam': camera_arrays(ctx['cam'], copy)}
                                for k, ctx in self._stash.items()}
+        if self._streaming is not None:
+            arrays['stream'] = self._streaming.state_dict(copy)[0]
         return arrays
 
     def state_dict(self, copy: bool = True) -> tuple:
@@ -1018,8 +1091,9 @@ class BatchedStepper:
         taken at a tick boundary.  ``arrays`` is nested dicts of tensors and
         numpy arrays (the caches, every pool entry, the private lanes
         without their pool index, the slots' last cameras and the stashed
-        lane contexts); ``meta`` holds the scheduler's bookkeeping as
-        JSON-able values, under the JAX package's keys.  Every tensor is a
+        lane contexts, and a streamed scene's arena); ``meta`` holds the
+        scheduler's bookkeeping (and the residency mirrors under
+        ``'stream'``) as JSON-able values, under the JAX package's keys.  Every tensor is a
         clone, since the next tick writes the live state in place; with
         ``copy=False`` the tensors are the live ones, for a caller that
         copies them before the next tick (``CheckpointManager.save``)."""
@@ -1041,6 +1115,8 @@ class BatchedStepper:
                           'slot_pool': int(ctx['slot_pool'])}
                       for k, ctx in self._stash.items()},
         }
+        if self._streaming is not None:
+            meta['stream'] = self._streaming.state_dict(copy=False)[1]
         return self._state_arrays(copy), meta
 
     def _priv_from(self, arrays: dict, pool_idx) -> ViewerPrivate:
@@ -1084,6 +1160,9 @@ class BatchedStepper:
                 'pending_sort': bool(sm['pending_sort']),
                 'slot_pool': int(sm['slot_pool']),
             }
+        if self._streaming is not None and 'stream' in meta:
+            self._streaming.load_state(arrays['stream'], meta['stream'])
+            self.scene = self._streaming.scene()
 
     def state_template(self, meta: dict) -> dict:
         """An arrays tree shaped like a snapshot whose ``meta`` is given,
@@ -1099,6 +1178,9 @@ class BatchedStepper:
             lane = {'priv': _priv_arrays(privates_at(self.priv, [0]), False),
                     'cam': camera_arrays(stack_cameras([self._cam0]), False)}
             arrays['stash'] = {k: lane for k in meta['stash']}
+        arrays.pop('stream', None)
+        if self._streaming is not None and 'stream' in meta:
+            arrays['stream'] = self._streaming.state_template()
         return arrays
 
     # -- viewer extraction / injection ----------------------------------------
