@@ -99,8 +99,31 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    sized to the prefetch ring of the run's cameras under
    ``ThreadedDriver``: every tick bit-identical, no stall after the first
    tick, prefetch hits, fewer resident bytes than the scene's;
-9. print the total wall time, the ``{"kernels": [...]}`` line, then the
-   last line ``{"ok": true, "device": {...}}``.
+9. fleet (``fleet_phase``), at the same size: 6 viewers of 12 frames
+   (arrivals 0, 0, 1, 2, 3, 5; sid 3 at pace 2; each on its own orbit and
+   scene block) on 2 ``FleetManager`` workers of 4 slots that share the
+   one card, every kernel-backend sync run with each worker's launches
+   counted (``LAUNCHES`` across each sync-driver leg): (a) the sync fleet
+   and a reference-backend sync fleet in lockstep, with slots, sort logs
+   and caches equal after every tick and every frame's hits and sorted
+   flag equal (images within 128 ulps), then the ``ThreadedFleetDriver``
+   fleet against the sync fleet (integers, final caches and launch counts
+   equal; whether its images are bit-identical is printed), with the
+   fleet and worker tick medians, both loop walls and each worker's
+   ``StragglerDetector`` EWMA; (b) sid 5 moved cold at tick 8 and sid 3
+   aligned at tick 13, against the never-moved run: the aligned and the
+   unmoved viewers equal it on every integer, the cold one renders every
+   frame once; (c) checkpoints every 4 ticks under ``build/fleet_ckpt``
+   (deleted after): ``restore_at_launch`` of the tick-4 snapshots in a
+   fresh fleet continues as the never-moved run, then worker 0 is lost at
+   tick 6 and the fleet rolls back: the survivors' and the aligned
+   victim's renders equal the never-moved run on every integer, the
+   spilled viewers re-queue at their snapshot cursors, every viewer
+   drains and the loss counters match ``plan_shrink`` on the snapshots;
+   it prints the time to recover with the restores split out and the
+   checkpoint bytes of each worker;
+10. print the total wall time, the ``{"kernels": [...]}`` line, then the
+    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -163,6 +186,20 @@ REALTIME_FAULTS = FAULT_EVENTS + (('worker_death', 4, {}),
 REALTIME_WATCHDOG_S = 2.0
 STREAM_CELL, STREAM_CHUNK, STREAM_NEAR, STREAM_LOD = 0.4, 64, 3, 5
 STREAM_START_DEG = 24.0
+# the fleet phase: FLEET_VIEWERS viewers of FRAMES frames, each on its own
+# orbit and scene block, arriving at FLEET_ARRIVALS with FLEET_PACES (one
+# pace-2 viewer), on FLEET_WORKERS workers of FLEET_SLOTS slots that all
+# share the one card.  The migration run moves sid 5 at tick 8 to worker 0,
+# whose slot 2 is taken (a cold move), and sid 3 at tick 13 to worker 0,
+# whose slot 1 has just been freed (an aligned move); the loss run
+# checkpoints every FLEET_CKPT_EVERY ticks and loses worker 0 at
+# FLEET_LOSS_TICK, so it rolls back to tick 4 with one victim aligned onto
+# the survivor and two spilled.
+FLEET_WORKERS, FLEET_SLOTS, FLEET_VIEWERS = 2, 4, 6
+FLEET_ARRIVALS = (0, 0, 1, 2, 3, 5)
+FLEET_PACES = (1, 1, 1, 2, 1, 1)
+FLEET_COLD_MOVE, FLEET_ALIGNED_MOVE = (8, 5, 0), (13, 3, 0)
+FLEET_CKPT_EVERY, FLEET_LOSS_TICK = 4, 6
 DEVICE = 'cuda'
 
 
@@ -2042,6 +2079,479 @@ def realtime_phase(pkg, scene, shared: dict, fault_rec: dict) -> dict:
     return out
 
 
+def fleet_sessions(pkg) -> list:
+    """FLEET_VIEWERS sessions of FRAMES frames, each on its own orbit (60
+    deg apart) and its own scene block, arriving at FLEET_ARRIVALS with
+    FLEET_PACES."""
+    return [pkg.serve.ViewerSession(
+        sid=sid, cams=pkg.orbit_trajectory(FRAMES, width=WIDTH,
+                                           height_px=HEIGHT,
+                                           start_deg=60.0 * sid,
+                                           device=DEVICE),
+        arrival_tick=arrival, scene_id=sid, pace=pace)
+        for sid, (arrival, pace) in enumerate(zip(FLEET_ARRIVALS,
+                                                  FLEET_PACES))]
+
+
+def fleet_build(pkg, scene, backend: str, **kw):
+    """FLEET_WORKERS workers of FLEET_SLOTS private slots, all on the card
+    (``launch.mesh.serve_devices`` cycles over the one card)."""
+    cam0 = pkg.orbit_trajectory(1, width=WIDTH, height_px=HEIGHT,
+                                device=DEVICE)[0]
+    return pkg.fleet.FleetManager.build(
+        scene, lumina_config(pkg, backend=backend), cam0,
+        num_devices=FLEET_WORKERS, slots_per_device=FLEET_SLOTS,
+        device=DEVICE, **kw)
+
+
+def fleet_record(fm) -> dict:
+    """Record every frame the fleet renders under ``(sid, frame index)``:
+    a list of ``(image, hit count, sorted flag)``, one entry a render (a
+    rollback replays frames)."""
+    rec = {}
+    for w in fm.workers:
+        mgr, stepper = w.mgr, w.mgr.stepper
+        pixels = stepper.tiles_x * stepper.tiles_y * 256
+
+        def recording_finish(infl, finish=stepper.step_finish, mgr=mgr,
+                             pixels=pixels):
+            out = finish(infl)
+            for slot, (img, st, _) in out.items():
+                sess = mgr.slot_session[slot]
+                rec.setdefault((sess.sid, sess.cursor), []).append(
+                    (img, round(float(st.hit_rate) * pixels),
+                     float(st.sorted_this_frame)))
+            return out
+
+        stepper.step_finish = recording_finish
+    return rec
+
+
+def fleet_instrument(pkg, fm) -> dict:
+    """Count each worker's kernel launches and time its legs (the sync
+    driver runs the legs one after another, so a leg's change of
+    ``LAUNCHES`` is its own)."""
+    out = {'launches': {w.device_id: collections.Counter()
+                        for w in fm.workers},
+           'leg_ms': {w.device_id: [] for w in fm.workers}}
+    leg = fm._worker_tick
+
+    def counted(w):
+        before = dict(pkg.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        frames = leg(w)
+        out['leg_ms'][w.device_id].append((time.perf_counter() - t0) * 1e3)
+        for name, n in pkg.kernels.LAUNCHES.items():
+            out['launches'][w.device_id][name] += n - before[name]
+        return frames
+
+    fm._worker_tick = counted
+    return out
+
+
+def fleet_drive(fm, limit: int, until: int | None = None,
+                tick_ms: list | None = None) -> float:
+    """The sync fleet driver's loop until the fleet drains or reaches tick
+    ``until``; each fleet tick's wall (ms) goes to ``tick_ms``.  Returns
+    the loop's wall seconds."""
+    import torch
+    t0 = time.perf_counter()
+    while not fm.drained() and (until is None or fm.tick < until):
+        t = time.perf_counter()
+        fm.run_tick()
+        if tick_ms is not None:
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+        if fm.tick > limit:
+            fail(f'fleet run did not drain in {limit} ticks')
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fleet_compare(label: str, want: dict, got: dict, keys=None, *,
+                  replays: bool = False) -> tuple:
+    """Hold the renders of ``got`` (under ``keys``, all of ``want``'s by
+    default) against ``want``: hit counts and sorted flags equal, images
+    within ULPS.  With ``replays`` every render of a key is held against
+    ``want``'s only render of it, else the renders pair up one to one.
+    Returns (every image bit-identical, largest absolute difference,
+    largest difference in ulps x magnitude)."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    keys = sorted(want) if keys is None else sorted(keys)
+    identical, worst = True, [0.0, 0.0]
+    for key in keys:
+        if key not in got or key not in want:
+            fail(f'{label}: frame {key} rendered in one run only')
+        w, g = want[key], got[key]
+        if not replays and len(w) != len(g):
+            fail(f'{label}: frame {key} rendered {len(g)} times, '
+                 f'{len(w)} in the oracle')
+        for i, (img, hits, flag) in enumerate(g):
+            w_img, w_hits, w_flag = w[0 if replays else i]
+            if (hits, flag) != (w_hits, w_flag):
+                fail(f'{label}: frame {key}: (hits, sorted) {(hits, flag)} '
+                     f'!= {(w_hits, w_flag)}')
+            if not ulp_close(img, w_img):
+                fail(f'{label}: frame {key}: images differ by more than '
+                     f'{ULPS} ulps')
+            identical &= bool(torch.equal(img, w_img))
+            diff = (img - w_img).abs()
+            scale = torch.clamp(torch.maximum(img.abs(), w_img.abs()),
+                                min=1.0)
+            worst[0] = max(worst[0], float(diff.max()))
+            worst[1] = max(worst[1], float((diff / (eps * scale)).max()))
+    return identical, worst[0], worst[1]
+
+
+def fleet_state_check(label: str, fm, want) -> None:
+    """Each worker's clock, placement, sort log and cache equal
+    ``want``'s."""
+    import torch
+    for w, v in zip(fm.workers, want.workers):
+        a, b = w.mgr.stepper, v.mgr.stepper
+        if (w.mgr.tick, a.global_tick) != (v.mgr.tick, b.global_tick):
+            fail(f'{label}: device {w.device_id} clocks differ')
+        if [s and s.sid for s in w.mgr.slot_session] != \
+                [s and s.sid for s in v.mgr.slot_session]:
+            fail(f'{label}: device {w.device_id} slots differ')
+        if a.sort_log != b.sort_log:
+            fail(f'{label}: device {w.device_id} sort logs differ')
+        for f in ('tags', 'age', 'clock'):
+            if not torch.equal(getattr(a.shared.cache, f),
+                               getattr(b.shared.cache, f)):
+                fail(f'{label}: device {w.device_id} cache {f} differs')
+
+
+def fleet_check_drained(label: str, fm, restored: bool = False) -> None:
+    """Every viewer finished at its last frame, with each frame counted
+    once (a restored run counts only the frames after its snapshot)."""
+    done = fm.finished_sessions()
+    if [s.sid for s in done] != list(range(FLEET_VIEWERS)) or any(
+            s.cursor != FRAMES or not 0 < s.telemetry.frames <= FRAMES
+            or (s.telemetry.frames != FRAMES and not restored)
+            for s in done):
+        fail(f'{label}: finished {[s.sid for s in done]} with frames '
+             f'{[s.telemetry.frames for s in done]}')
+
+
+def fleet_phase(pkg, scene) -> dict:
+    """(a) conformance, (b) migration, (c) device loss and restore at
+    launch; see the module docstring.  Returns the printed numbers."""
+    import torch
+    out = {}
+    limit = 4 * FRAMES + 20
+    # (a) the sync fleet on both backends in lockstep, then threaded
+    golden = fleet_build(pkg, scene, 'kernel')
+    ref = fleet_build(pkg, scene, 'reference')
+    g_rec, r_rec = fleet_record(golden), fleet_record(ref)
+    inst = fleet_instrument(pkg, golden)
+    for fm in (golden, ref):
+        for sess in fleet_sessions(pkg):
+            fm.submit(sess)
+    tick_ms, ref_s = [], 0.0
+    pkg.kernels.reset_launches()
+    while not (golden.drained() and ref.drained()):
+        t = time.perf_counter()
+        golden.run_tick()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ref.run_tick()
+        ref_s += time.perf_counter() - t
+        fleet_state_check(f'fleet reference tick {golden.tick - 1}', ref,
+                          golden)
+        if golden.tick > limit:
+            fail(f'fleet conformance did not drain in {limit} ticks')
+    sync_launches = dict(pkg.kernels.LAUNCHES)
+    for d, n in inst['launches'].items():
+        check_launched(f'fleet sync device {d}', n)
+    fleet_check_drained('fleet sync', golden)
+    if golden.home != ref.home:
+        fail('fleet reference: routing differs')
+    _, ref_abs, ref_ulps = fleet_compare('fleet reference', g_rec, r_rec)
+    del ref, r_rec
+    # the sync driver's own loop is run_tick after run_tick
+    sync_wall = sum(tick_ms) / 1e3
+    sync_det = pkg.straggler.StragglerDetector(FLEET_WORKERS)
+    for t in range(len(tick_ms)):
+        sync_det.observe_step({d: ms[t] / 1e3
+                               for d, ms in inst['leg_ms'].items()
+                               if t < len(ms)})
+    threaded = fleet_build(pkg, scene, 'kernel')
+    t_rec = fleet_record(threaded)
+    for sess in fleet_sessions(pkg):
+        threaded.submit(sess)
+    drv = pkg.fleet.ThreadedFleetDriver(threaded)
+    t_tick_ms, t_leg_ms = [], {d: [] for d in range(FLEET_WORKERS)}
+    run_tick, observe = drv.run_tick, drv.detector.observe_step
+
+    def timed_tick():
+        t = time.perf_counter()
+        frames = run_tick()
+        t_tick_ms.append((time.perf_counter() - t) * 1e3)
+        return frames
+
+    def observed(timings):
+        for d, s in timings.items():
+            t_leg_ms[d].append(s * 1e3)
+        return observe(timings)
+
+    drv.run_tick, drv.detector.observe_step = timed_tick, observed
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    drv.run(limit)
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    threaded_wall = time.perf_counter() - t0
+    launches = dict(pkg.kernels.LAUNCHES)
+    if launches != sync_launches:
+        fail(f'fleet threaded: launches {launches} != the sync run\'s '
+             f'{sync_launches}')
+    fleet_check_drained('fleet threaded', threaded)
+    if 'serve.thread_leaks' in threaded.metrics:
+        fail('fleet threaded: a worker thread leaked')
+    if (threaded.tick, threaded.home) != (golden.tick, golden.home):
+        fail('fleet threaded: ticks or routing differ from the sync run')
+    fleet_state_check('fleet threaded', threaded, golden)
+    t_identical, t_abs, _ = fleet_compare('fleet threaded', g_rec, t_rec)
+
+    def worker_medians(fm):
+        return {w.device_id: statistics.median(
+            t['latency_ms'] for t in w.mgr.tick_log if t['tick'] > 0)
+            for w in fm.workers}
+
+    out['conformance'] = dict(
+        ticks=golden.tick, frames=FLEET_VIEWERS * FRAMES,
+        fleet_tick_ms_median=statistics.median(tick_ms),
+        fleet_tick_ms_max=max(tick_ms),
+        worker_tick_ms_median=worker_medians(golden),
+        worker_leg_ms_median={d: statistics.median(ms)
+                              for d, ms in inst['leg_ms'].items()},
+        sync_wall_s=sync_wall, reference_wall_s=ref_s,
+        threaded_wall_s=threaded_wall,
+        threaded_fleet_tick_ms_median=statistics.median(t_tick_ms),
+        threaded_worker_tick_ms_median=worker_medians(threaded),
+        threaded_worker_leg_ms_median={d: statistics.median(ms)
+                                       for d, ms in t_leg_ms.items()},
+        straggler_ewma_ms={d: s.ewma * 1e3
+                           for d, s in enumerate(drv.detector.stats)},
+        sync_straggler_ewma_ms={d: s.ewma * 1e3
+                                for d, s in enumerate(sync_det.stats)},
+        straggler_flagged=sorted(drv.detector.flagged),
+        threaded_bit_identical=t_identical,
+        threaded_max_abs_diff=t_abs,
+        reference_max_abs_diff=ref_abs, reference_max_ulps=ref_ulps,
+        home=golden.home, launches=sync_launches,
+        launches_per_worker={d: dict(n)
+                             for d, n in inst['launches'].items()})
+    print(f'fleet conformance: {FLEET_VIEWERS} viewers x {FRAMES} frames '
+          f'on {FLEET_WORKERS} workers x {FLEET_SLOTS} slots, one card; '
+          f'the reference backend made the sync fleet\'s decisions on every '
+          f'tick (routing, slots, sort_log, cache; hits and sorted flags of '
+          f'every frame, images within {ULPS} ulps); the threaded fleet '
+          f'equals the sync fleet on every integer: '
+          + json.dumps(out['conformance']), flush=True)
+    del threaded, t_rec, golden, drv
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (b) a cold move and an aligned move against the golden run
+    fm = fleet_build(pkg, scene, 'kernel')
+    m_rec = fleet_record(fm)
+    inst = fleet_instrument(pkg, fm)
+    for sess in fleet_sessions(pkg):
+        fm.submit(sess)
+    moves = {}
+    for kind, (tick, sid, dst) in (('cold', FLEET_COLD_MOVE),
+                                   ('aligned', FLEET_ALIGNED_MOVE)):
+        fleet_drive(fm, limit, until=tick)
+        src = fm.home[sid]
+        slot = next(i for i, s in enumerate(fm.workers[src].mgr.slot_session)
+                    if s is not None and s.sid == sid)
+        t0 = time.perf_counter()
+        target = fm.migrate(sid, dst)
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+        moves[kind] = dict(tick=tick, sid=sid, src=src, dst=dst,
+                           slot=slot, target=target,
+                           ms=(time.perf_counter() - t0) * 1e3)
+        key = f'fleet.migrations{{kind={kind}}}'
+        if key not in fm.metrics or fm.metrics[key].value != 1 or \
+                (target == slot) != (kind == 'aligned'):
+            fail(f'fleet migration: the {kind} move of sid {sid} landed in '
+                 f'slot {target} from slot {slot}')
+    fleet_drive(fm, limit)
+    for d, n in inst['launches'].items():
+        check_launched(f'fleet migration device {d}', n)
+    fleet_check_drained('fleet migration', fm)
+    a_sid, c_sid = FLEET_ALIGNED_MOVE[1], FLEET_COLD_MOVE[1]
+    a_identical, a_abs, _ = fleet_compare(
+        'fleet aligned move', g_rec, m_rec,
+        [k for k in g_rec if k[0] == a_sid])
+    cold = {f: len(m_rec.get((c_sid, f), ())) for f in range(FRAMES)}
+    if set(cold.values()) != {1} or any(
+            k[0] == c_sid and k[1] >= FRAMES for k in m_rec):
+        fail(f'fleet cold move: frames rendered {cold}')
+    u_identical, u_abs, _ = fleet_compare(
+        'fleet unmoved', g_rec, m_rec,
+        [k for k in g_rec if k[0] not in (a_sid, c_sid)])
+    out['migration'] = dict(
+        moves=moves, aligned_bit_identical=a_identical,
+        aligned_max_abs_diff=a_abs, unmoved_bit_identical=u_identical,
+        unmoved_max_abs_diff=u_abs, ticks=fm.tick,
+        launches_per_worker={d: dict(n)
+                             for d, n in inst['launches'].items()})
+    print(f'fleet migration: sid {c_sid} moved cold and sid {a_sid} aligned '
+          f'mid-run; the aligned viewer and the unmoved viewers equal the '
+          f'golden run on every integer, the cold viewer rendered every '
+          f'frame once: ' + json.dumps(out['migration']), flush=True)
+    del fm, m_rec
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    # (c) device loss with checkpoint rollback; restore at launch
+    ckdir = HERE / 'build' / 'fleet_ckpt'
+    shutil.rmtree(ckdir, ignore_errors=True)
+    F = pkg.faults
+    inj = F.FaultInjector(F.FaultTrace(seed=0, events=(F.FaultEvent(
+        tick=FLEET_LOSS_TICK, kind='device_loss', slot=0),)))
+    fm = fleet_build(pkg, scene, 'kernel', ckpt_root=ckdir,
+                     ckpt_every=FLEET_CKPT_EVERY, injector=inj)
+    l_rec = fleet_record(fm)
+    inst = fleet_instrument(pkg, fm)
+    saves = {w.device_id: [] for w in fm.workers}
+    for w in fm.workers:
+        def timed_save(tree, save=w.ckpt.save, d=w.device_id, **kw):
+            t0 = time.perf_counter()
+            save(tree, **kw)
+            saves[d].append((time.perf_counter() - t0) * 1e3)
+        w.ckpt.save = timed_save
+    for sess in fleet_sessions(pkg):
+        fm.submit(sess)
+    pkg.kernels.reset_launches()
+    fleet_drive(fm, limit, until=FLEET_LOSS_TICK)
+    for w in fm.workers:
+        w.ckpt.wait()
+    snap = {w.device_id: w.ckpt.manifest_extra(w.ckpt.latest())
+            for w in fm.workers}
+    step = snap[0]['tick']
+    ckpt_bytes = {d: sum(p.stat().st_size for p in
+                         (ckdir / f'device{d}' / f'step_{step:010d}').iterdir())
+                  for d in snap}
+
+    # restore at launch in a fresh fleet from the same directory (read
+    # only), while the loss run waits at its tick boundary
+    rfm = fleet_build(pkg, scene, 'kernel', ckpt_root=ckdir)
+    rr_rec = fleet_record(rfm)
+    t0 = time.perf_counter()
+    restored = rfm.restore_at_launch(fleet_sessions(pkg))
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    launch_restore_s = time.perf_counter() - t0
+    if restored != step:
+        fail(f'fleet restore at launch: restored tick {restored}, the '
+             f'snapshot is at {step}')
+    fleet_drive(rfm, limit)
+    fleet_check_drained('fleet restore at launch', rfm, restored=True)
+    cont = {}
+    for d, meta in snap.items():
+        for m in meta['slots']:
+            if m is not None:
+                cont[m['sid']] = m['cursor']
+    want_keys = [k for k in g_rec if k[1] >= cont.get(k[0], 0)]
+    if sorted(rr_rec) != sorted(want_keys):
+        fail(f'fleet restore at launch: rendered {sorted(rr_rec)}, '
+             f'expected {sorted(want_keys)}')
+    r_identical, r_abs, _ = fleet_compare('fleet restore at launch', g_rec,
+                                          rr_rec, want_keys)
+    del rfm, rr_rec
+
+    # the loss at FLEET_LOSS_TICK, timed with its restores split out
+    restore_ms = collections.defaultdict(list)
+    for w in fm.workers:
+        mgr = w.mgr
+        for name in ('restore_serving', '_restore_arrays'):
+            def timed(*a, fn=getattr(mgr, name), d=w.device_id, name=name,
+                      **kw):
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                restore_ms[f'{name} device {d}'].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return res
+            setattr(mgr, name, timed)
+    lose, at_loss = fm.lose_device, {}
+    recover = {}
+
+    def timed_lose(victim):
+        at_loss.update({s.sid: s.cursor for s in fm.sessions.values()})
+        t0 = time.perf_counter()
+        lose(victim)
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+        recover['s'] = time.perf_counter() - t0
+
+    fm.lose_device = timed_lose
+    fleet_drive(fm, limit)
+    for d, n in inst['launches'].items():
+        check_launched(f'fleet loss device {d}', n)
+    fleet_check_drained('fleet loss', fm)
+    victims = tuple((m['sid'], slot) for slot, m in enumerate(snap[0]['slots'])
+                    if m is not None)
+    free = {1: tuple(i for i, m in enumerate(snap[1]['slots']) if m is None)}
+    aligned, spilled = pkg.fleet.plan_shrink(victims, free, {1})
+    counters = {k: fm.metrics[k].value for k in fm.metrics.names()
+                if k.startswith('fleet.')}
+    want = {'fleet.device_lost{device=0}': 1,
+            'fleet.migrations{kind=loss_aligned}': len(aligned),
+            'fleet.migrations{kind=loss_spilled}': len(spilled),
+            'fleet.alive_devices': 1}
+    if not aligned or not spilled or any(counters.get(k) != v
+                                         for k, v in want.items()):
+        fail(f'fleet loss: counters {counters}, expected {want} '
+             f'(aligned {aligned}, spilled {spilled})')
+    kept = [m['sid'] for m in snap[1]['slots'] if m is not None]
+    exact_sids = kept + [sid for sid, _, _ in aligned]
+    l_identical, l_abs, _ = fleet_compare(
+        'fleet loss survivors', g_rec, l_rec,
+        [k for k in g_rec if k[0] in exact_sids], replays=True)
+    for sid in spilled:
+        c_snap = cont[sid]
+        counts = {f: len(l_rec.get((sid, f), ())) for f in range(FRAMES)}
+        twice = {f for f, n in counts.items() if n == 2}
+        if set(counts.values()) - {1, 2} or \
+                twice != set(range(c_snap, at_loss[sid])):
+            fail(f'fleet loss: spilled sid {sid} (snapshot cursor {c_snap}, '
+                 f'{at_loss[sid]} at the loss) rendered {counts}')
+        fleet_compare(f'fleet loss spilled sid {sid}', g_rec, l_rec,
+                      [(sid, f) for f in range(c_snap)])
+    for w in fm.workers:
+        w.ckpt.wait()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out['loss'] = dict(
+        loss_tick=FLEET_LOSS_TICK, snapshot_tick=step, ticks=fm.tick,
+        aligned=aligned, spilled=spilled, counters=counters,
+        recover_s=recover['s'],
+        restore_ms={k: v for k, v in restore_ms.items()},
+        survivors_bit_identical=l_identical, survivors_max_abs_diff=l_abs,
+        checkpoint_bytes=ckpt_bytes, save_ms=saves,
+        launch_restore_s=launch_restore_s,
+        launch_restore_bit_identical=r_identical,
+        launch_restore_max_abs_diff=r_abs,
+        launches_per_worker={d: dict(n)
+                             for d, n in inst['launches'].items()})
+    print(f'fleet loss: device 0 lost at tick {FLEET_LOSS_TICK}, the fleet '
+          f'rolled back to tick {step}; survivors and the aligned victim '
+          f'equal the golden run on every integer of every render, the '
+          f'spilled viewers re-queued at their snapshot cursors, every '
+          f'viewer drained; restore_at_launch from the same snapshots '
+          f'continued as the golden run: ' + json.dumps(out['loss']),
+          flush=True)
+    del fm, l_rec, g_rec
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -2059,14 +2569,16 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.rc_lookup as rcl
     import repro_torch.obs as obs
     import repro_torch.serve as serve
+    import repro_torch.runtime.straggler as straggler
     import repro_torch.serve.faults as faults
+    import repro_torch.serve.fleet as fleet
     import repro_torch.serve.streaming as streaming
     return types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
         orbit_trajectory=trajectory.orbit_trajectory, build=build,
         ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
-        streaming=streaming)
+        streaming=streaming, fleet=fleet, straggler=straggler)
 
 
 def main() -> int:
@@ -2137,6 +2649,9 @@ def main() -> int:
     print(f'realtime phase took {time.perf_counter() - t0:.1f} s',
           flush=True)
     del shared, fault_rec
+    t0 = time.perf_counter()
+    fleet_phase(pkg, scene)
+    print(f'fleet phase took {time.perf_counter() - t0:.1f} s', flush=True)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

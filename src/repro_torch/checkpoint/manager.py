@@ -60,23 +60,25 @@ def _children(tree: Any) -> list:
     return []
 
 
-def _rebuild(template: Any, leaves) -> Any:
+def _rebuild(template: Any, leaves, device=None) -> Any:
     """``template`` with its leaves taken in order from the iterator
-    ``leaves`` (numpy arrays): a tensor leaf becomes a tensor on the
-    template's device, a numpy leaf stays numpy."""
+    ``leaves`` (numpy arrays): a tensor leaf becomes a tensor on ``device``
+    (the template's own by default), a numpy leaf stays numpy."""
     if isinstance(template, torch.Tensor):
-        return torch.from_numpy(next(leaves)).to(template.device)
+        return torch.from_numpy(next(leaves)).to(
+            template.device if device is None else device)
     if isinstance(template, np.ndarray):
         return next(leaves)
     if isinstance(template, dict):
-        built = {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        built = {k: _rebuild(template[k], leaves, device)
+                 for k in sorted(template)}
         return {k: built[k] for k in template}
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         return dataclasses.replace(template, **{
-            f.name: _rebuild(getattr(template, f.name), leaves)
+            f.name: _rebuild(getattr(template, f.name), leaves, device)
             for f in dataclasses.fields(template)})
     if isinstance(template, (tuple, list)):
-        vals = [_rebuild(x, leaves) for x in template]
+        vals = [_rebuild(x, leaves, device) for x in template]
         if hasattr(template, '_fields'):     # a NamedTuple
             return type(template)(*vals)
         return type(template)(vals)
@@ -145,8 +147,10 @@ def save_checkpoint(path: str | Path, tree: Any, *, step: int,
                   step=step, extra=extra)
 
 
-def load_checkpoint(path: str | Path, tree_like: Any, *, step: int) -> tuple:
-    """Load ``step`` into the structure of ``tree_like``.  Returns
+def load_checkpoint(path: str | Path, tree_like: Any, *, step: int,
+                    device=None) -> tuple:
+    """Load ``step`` into the structure of ``tree_like``, its tensors on
+    ``device`` (each template tensor's own device by default).  Returns
     ``(tree, extra)``; raises ``ValueError`` when the leaf names, a shape
     or a shard's checksum differ from what was saved."""
     path = Path(path) / f'step_{step:010d}'
@@ -179,7 +183,7 @@ def load_checkpoint(path: str | Path, tree_like: Any, *, step: int) -> tuple:
                              f'{a.shape} saved vs {tuple(leaf.shape)} '
                              'expected')
         out.append(a)
-    return _rebuild(tree_like, iter(out)), manifest.get('extra', {})
+    return _rebuild(tree_like, iter(out), device), manifest.get('extra', {})
 
 
 class CheckpointManager:

@@ -79,6 +79,13 @@ def camera_at(cams: Camera, i) -> Camera:
         host_pose=host)
 
 
+def camera_to(cam: Camera, device) -> Camera:
+    """The camera (or stacked cameras) with its tensors on ``device``; the
+    host copy of the pose carries over."""
+    return dataclasses.replace(
+        cam, **{f: getattr(cam, f).to(device) for f in TENSOR_FIELDS})
+
+
 def camera_arrays(cam: Camera, copy: bool = True) -> dict:
     """The camera's tensors by field name (copies unless ``copy`` is
     False): what a saved serving state holds of a camera."""

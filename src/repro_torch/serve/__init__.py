@@ -13,6 +13,9 @@ Layers, bottom up:
     and crash-consistent checkpoints (``repro_torch.checkpoint``);
   * ``events``    — ``TickPlan``, the ``SyncDriver`` (virtual clock) and the
     ``ThreadedDriver`` (host planning on a worker thread);
+  * ``fleet``     — the elastic multi-device fleet: one worker per device,
+    routing, live migration and device-loss rollback, under the
+    ``SyncFleetDriver`` or the ``ThreadedFleetDriver``;
   * ``streaming`` — pose-cell scene residency through a device arena;
   * ``faults``    — seeded, replayable fault traces and their injector;
   * ``traffic``   — replayable arrival traces with per-viewer pacing;
@@ -20,6 +23,8 @@ Layers, bottom up:
   * ``render``    — the CLI (``python -m repro_torch.serve.render``).
 """
 from .events import HostTiming, SyncDriver, ThreadedDriver, TickPlan
+from .fleet import (FleetManager, SyncFleetDriver, ThreadedFleetDriver,
+                    serve_fleet)
 from .session import SessionManager, ViewerSession
 from .stepper import BatchedStepper, SequentialStepper, TickTiming
 from .telemetry import SessionTelemetry, aggregate, format_table, tick_rollup
@@ -29,5 +34,6 @@ __all__ = [
     'BatchedStepper', 'SequentialStepper', 'SessionManager', 'TickTiming',
     'ViewerSession', 'SessionTelemetry', 'aggregate', 'format_table',
     'tick_rollup', 'TickPlan', 'HostTiming', 'SyncDriver', 'ThreadedDriver',
+    'FleetManager', 'SyncFleetDriver', 'ThreadedFleetDriver', 'serve_fleet',
     'TrafficTrace', 'make_trace',
 ]

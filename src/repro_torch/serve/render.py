@@ -14,6 +14,10 @@ then prints per-session telemetry:
         --driver threaded --trace-out build/trace.json
     PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
         --viewers 2 --frames 3 --width 64 --gaussians 600 --stream
+    PYTHONPATH=src python -m repro_torch.serve.render --device cpu \\
+        --devices 2 --viewers 4 --slots 2 --frames 3 --width 64 \\
+        --gaussians 600 --faults device_loss \\
+        --checkpoint-dir build/fleet_ckpt --checkpoint-every 2
 
 Each scene's viewers orbit it from the scene's own start angle; the batched
 stepper advances all slots through one slot-batched shade per tick, and
@@ -83,7 +87,7 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
           stream_budget: int = 0, stream_near: int = 2, stream_lod: int = 4,
           stream_lod_frac: float = 0.5, stream_cell: float = 0.4,
           stream_chunk: int = 64, stream_max_loads: int = 0,
-          device=None, print_fn=print) -> dict:
+          devices: int = 1, device=None, print_fn=print) -> dict:
     """Run the serving loop to completion; returns the aggregate rollup.
 
     ``backend`` selects the shade ('reference' | 'kernel');
@@ -121,6 +125,14 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     ``stream_budget`` bounds the device arena in bytes (0: one frame per
     chunk) and ``stream_max_loads`` the chunk loads a tick (0: unbounded;
     misses beyond it stall only the missing viewer's slot).
+
+    ``devices`` > 1 serves through the elastic multi-device fleet
+    (``repro_torch.serve.fleet``): ``slots`` render slots *per device
+    worker*, a shared bounded admission queue with deterministic routing,
+    and device-loss recovery (inject it with ``--faults device_loss``;
+    checkpointing makes the recovery a whole-fleet rollback).  The workers
+    cycle over the cards (``launch.mesh.serve_devices``): on one card, or
+    on the CPU, they all share it.
     """
     if viewers < 1 or frames < 1:
         raise SystemExit('--viewers and --frames must be >= 1')
@@ -139,6 +151,9 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     if stream and sequential:
         raise SystemExit('--stream needs the batched engine (residency is '
                          'a property of the shared scene arena)')
+    if stream and devices > 1:
+        raise SystemExit('--stream is a single-device feature for now '
+                         '(fleet workers hold fully-resident scene copies)')
     dev = resolve_device(device)
     slots = slots or min(viewers, 8)
     # scene blocks are static: round slots up to whole blocks
@@ -166,6 +181,23 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
         fault_trace = serve_faults.make_trace(kinds, horizon, seed=fault_seed,
                                               rate=fault_rate, slots=slots)
         injector = serve_faults.FaultInjector(fault_trace)
+
+    if devices > 1:
+        if sequential:
+            raise SystemExit('--devices > 1 needs the batched engine')
+        if oversubscribe:
+            raise SystemExit('--oversubscribe is a single-device feature '
+                             '(fleet workers place one viewer per slot)')
+        return _serve_fleet_path(
+            scene, cfg, cam0, sessions, devices=devices, slots=slots,
+            driver=driver, viewers_per_scene=viewers_per_scene,
+            profile_every=profile_every, injector=injector,
+            fault_trace=fault_trace, fault_rate=fault_rate,
+            fault_seed=fault_seed, max_pending=max_pending,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, restore=restore,
+            backend=backend, arrivals=arrivals, trace_out=trace_out,
+            metrics_out=metrics_out, device=dev, print_fn=print_fn)
 
     if sequential:
         stepper = SequentialStepper(scene, cfg, cam0, slots, device=dev)
@@ -321,6 +353,88 @@ def serve(viewers: int, frames: int, *, slots: int = 0, width: int = 96,
     return agg
 
 
+def _serve_fleet_path(scene, cfg, cam0, sessions, *, devices, slots, driver,
+                      viewers_per_scene, profile_every, injector,
+                      fault_trace, fault_rate, fault_seed, max_pending,
+                      checkpoint_dir, checkpoint_every, restore, backend,
+                      arrivals, trace_out, metrics_out, device,
+                      print_fn) -> dict:
+    """The ``--devices N`` serving path: the elastic multi-device fleet
+    (``repro_torch.serve.fleet``) with ``slots`` render slots per device
+    worker.  ``restore`` resumes from the per-device lockstep checkpoints
+    under ``checkpoint_dir`` (``SystemExit`` when there are none: see
+    ``serve_fleet``)."""
+    from .fleet import serve_fleet
+    tracer = obs.Tracer() if trace_out else None
+    fleet, finished = serve_fleet(
+        scene, cfg, cam0, sessions, num_devices=devices,
+        slots_per_device=slots, driver=driver,
+        viewers_per_scene=viewers_per_scene, profile_every=profile_every,
+        ckpt_root=checkpoint_dir, ckpt_every=checkpoint_every,
+        restore=restore, max_pending=max_pending,
+        injector=injector, tracer=tracer, device=device)
+    if fleet.restored_tick is not None:
+        print_fn(f'-- restored serving state from tick '
+                 f'{fleet.restored_tick} ({checkpoint_dir}, '
+                 f'{devices} devices)')
+    if trace_out:
+        payload = obs.write_trace(trace_out, tracer)
+        obs.validate_chrome_trace(payload)
+        print_fn(f'-- trace: {len(tracer.events)} events -> {trace_out} '
+                 f'(load in https://ui.perfetto.dev)')
+    if metrics_out:
+        with open(metrics_out, 'w') as f:
+            f.write(fleet.metrics.to_json(indent=1))
+        print_fn(f'-- metrics: {len(fleet.metrics.names())} instruments -> '
+                 f'{metrics_out}')
+    summaries = [s.telemetry.summary() for s in finished]
+    agg = fleet.aggregate()
+    agg['ticks'] = fleet.tick
+    agg['mode'] = 'fleet'
+    agg['backend'] = backend
+    agg['viewers_per_scene'] = viewers_per_scene
+    agg['driver'] = driver
+    agg['arrivals'] = arrivals
+    agg['device'] = str(device)
+    agg['fault_rate'] = fault_rate if fault_trace is not None else 0.0
+    agg['faults_injected'] = sum(injector.fired_counts().values())
+    roll = tick_rollup(fleet.merged_tick_log(), warmup_ticks=1)
+    for key in ('p50_frame_ms', 'p95_frame_ms', 'host_ms', 'host_overlap'):
+        if key in roll:
+            agg[key] = roll[key]
+    print_fn(format_table(summaries))
+
+    def _counter(name: str) -> int:
+        # labelled counters register as 'name{k=v,...}': sum all series
+        return sum(fleet.metrics[key].value for key in fleet.metrics.names()
+                   if key == name or key.startswith(name + '{'))
+
+    agg['devices_lost'] = _counter('fleet.device_lost')
+    agg['requeued'] = _counter('fleet.requeued')
+    print_fn(f"-- fleet ({backend}, {driver}): "
+             f"{agg['devices']} devices ({agg['alive_devices']} alive), "
+             f"{agg['sessions']} sessions, {agg['frames']} frames in "
+             f"{agg['ticks']} ticks, "
+             f"fleet {agg['fleet_fps']:.2f} fps/viewer (frame-weighted), "
+             f"mean hit rate {agg['mean_hit_rate']:.2f}, "
+             f"worst p99 {agg['worst_p99_ms']:.0f} ms, "
+             f"shed arrivals {agg['shed']}")
+    if injector.enabled:
+        fired = injector.fired_counts()
+        fired_s = ' '.join(f'{k}={v}' for k, v in sorted(fired.items())) \
+            or 'none'
+        out = injector.outstanding()
+        out_s = (' (unfired: '
+                 + ' '.join(f'{k}={v}' for k, v in sorted(out.items()))
+                 + ' — counted in serve.faults_unfired)') if out else ''
+        print_fn(f"-- faults (seed {fault_seed}, rate {fault_rate}, "
+                 f"{len(fault_trace.events)} scheduled): fired {fired_s}"
+                 f"{out_s}; unfired {sum(out.values())}, "
+                 f"devices lost {agg['devices_lost']}, "
+                 f"re-queued {agg['requeued']}")
+    return agg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--viewers', type=int, default=4)
@@ -401,6 +515,11 @@ def main(argv=None):
     ap.add_argument('--restore', action='store_true',
                     help='resume from the newest complete checkpoint in '
                          '--checkpoint-dir instead of starting cold')
+    ap.add_argument('--devices', type=int, default=1, metavar='N',
+                    help='serve through the elastic multi-device fleet: N '
+                         'device workers with --slots slots each, a shared '
+                         'bounded admission queue and device-loss recovery '
+                         '(the workers cycle over the cards)')
     ap.add_argument('--stream', action='store_true',
                     help='stream the scene through a device arena of '
                          'pose-cell chunks (batched engine)')
@@ -449,7 +568,8 @@ def main(argv=None):
                  stream_lod_frac=args.stream_lod_frac,
                  stream_cell=args.stream_cell,
                  stream_chunk=args.stream_chunk,
-                 stream_max_loads=args.stream_max_loads, device=args.device)
+                 stream_max_loads=args.stream_max_loads,
+                 devices=args.devices, device=args.device)
 
 
 if __name__ == '__main__':

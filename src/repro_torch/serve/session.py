@@ -817,19 +817,22 @@ class SessionManager:
                              'runs resumed from a checkpoint').inc()
         return int(step)
 
-    def _restore_arrays(self, ckpt, max_step=None) -> Optional[tuple]:
+    def _restore_arrays(self, ckpt, max_step=None,
+                        device=None) -> Optional[tuple]:
         """The newest loadable checkpoint as ``(arrays, step, meta)``, with
         the shape template built per step from the manifest's stepper
         geometry (a snapshot's pool capacity and stashed lanes are part of
         it).  Steppers without ``state_template`` restore into their own
         ``state_dict`` through ``restore_latest``.  An unreadable snapshot
-        falls back one step."""
+        falls back one step.  ``device`` puts the tensors there instead of
+        on the stepper's device (the fleet reads a lost device's snapshot
+        into host memory)."""
         from ..checkpoint.manager import load_checkpoint
         state_template = getattr(self.stepper, 'state_template', None)
         if state_template is None:
-            if max_step is not None:
-                raise ValueError('max_step needs the manifest-template '
-                                 'restore path')
+            if max_step is not None or device is not None:
+                raise ValueError('max_step and device need the '
+                                 'manifest-template restore path')
             template, _ = self.stepper.state_dict(copy=False)
             return ckpt.restore_latest(template)
         ckpt.wait()
@@ -841,7 +844,8 @@ class SessionManager:
                 if extra is None:
                     raise ValueError('manifest unreadable')
                 template = state_template(extra.get('stepper', {}))
-                arrays, meta = load_checkpoint(ckpt.dir, template, step=step)
+                arrays, meta = load_checkpoint(ckpt.dir, template, step=step,
+                                               device=device)
                 return arrays, step, meta
             except Exception as e:   # corrupt / partial: fall back one step
                 ckpt.metrics.counter(

@@ -67,7 +67,7 @@ import torch
 from ..core import posecell
 from ..core import radiance_cache as rc
 from ..core.buckets import pow2_bucket
-from ..core.camera import (Camera, camera_arrays, camera_at,
+from ..core.camera import (Camera, camera_arrays, camera_at, camera_to,
                            camera_from_arrays, stack_cameras)
 from ..core.gaussians import GaussianScene
 from ..core.groups import regroup_slots, ungroup_slots
@@ -199,6 +199,29 @@ def _priv_arrays(priv: ViewerPrivate, copy: bool) -> dict:
     return {'prev_cam': camera_arrays(priv.prev_cam, copy),
             'frame_idx': np.array(priv.frame_idx),
             'cell_id': np.array(priv.cell_id)}
+
+
+def _payload_on(payload: dict, device: torch.device) -> dict:
+    """An ``extract_viewer`` payload with its tensors on ``device``: the
+    payload itself when they lie there already, else a copy moved there (a
+    viewer moving between two cards)."""
+    at = payload['cam'].position.device
+    if at.type == device.type and (device.index is None
+                                   or at.index == device.index):
+        return payload
+    out = dict(payload)
+    priv = payload['priv']
+    out['priv'] = dataclasses.replace(
+        priv, prev_cam=camera_to(priv.prev_cam, device))
+    out['cam'] = camera_to(payload['cam'], device)
+    block = payload.get('shared')
+    if block is not None:
+        out['shared'] = {
+            'cache': rc.CacheState(*(getattr(block['cache'], f).to(device)
+                                     for f in _CACHE_FIELDS)),
+            'pool': tuple(_entry_from(e, _entry_arrays(e, copy=False), device)
+                          for e in block['pool'])}
+    return out
 
 
 class BatchedStepper:
@@ -499,6 +522,7 @@ class BatchedStepper:
         self._empty = self.shared.pool[0][0]
         self._pool_owner = np.full((self.num_scenes, self.pool_cap), -1,
                                    np.int64)
+        self._slot_cams = [self._cam0] * self.slots
         self._frames_since_due[:] = 0
         self._pending_sort.clear()
         self._resident.clear()
@@ -1223,7 +1247,9 @@ class BatchedStepper:
         (bit-identical continuation under the alignment contract above); a
         cold one admits the slot (fresh scene, sort-on-admit queued) and
         then writes the private lane, so the viewer resumes its trajectory
-        against a cold cache."""
+        against a cold cache.  A payload extracted on another card is
+        moved to this stepper's device first."""
+        payload = _payload_on(payload, self.device)
         if payload.get('shared') is not None:
             if self.viewers_per_scene != 1:
                 raise ValueError('scene-carry restore needs a private '
