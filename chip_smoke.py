@@ -15,10 +15,31 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 3. reference: the same 12 frames through ``backend='reference'`` (plain
    rasterizer and cache): per-frame hit counts and cache state must be
    identical and images within 128 ulps x magnitude; PSNR of Lumina, S^2
-   alone and RC alone against ``render_frame_baseline`` (exact 3DGS);
-4. where the time goes: CUDA-event times of each stage of a shade frame and
+   alone and RC alone against ``render_frame_baseline`` (exact 3DGS), each
+   with its SSIM;
+4. paper (``paper_phase``), on the main path's scene and config: (a) frame
+   0's features through the dense differentiable walk
+   (``rasterize_tiles(..., early_exit=False)``, grad on) equal the chunked
+   walk's bit for bit on the colors and every aux field; the chunked walk,
+   the dense forward and the dense forward + backward timed (CUDA events)
+   with the backward's peak memory; (b) ``finetune`` of the same seed's
+   scene with a quarter of its Gaussians oversized, against targets
+   rendered from the main path's scene over 6 cameras at 30 FPS, for 12
+   steps of Eqn. 4's loss (alpha 8, theta 0.03): per step the loss terms,
+   PSNR, time and peak memory; every gradient leaf finite, ``l_scale``
+   falling and each camera's loss lower on its second visit; (c) RC-only
+   frames (``use_s2=False``) of the scene before and after on the kernel
+   backend (launch counts set to 0 just before, read just after) and the
+   reference backend, held as in 3, with PSNR, SSIM and the hit rate of
+   frames 1-5; (d) the hardware model (``core.hwmodel``) fed with the main
+   path's 12 frames (baseline aux, the main path's hit rates, one sort a
+   window): the variant table as measured and rescaled to the paper's
+   stage mix, MODELED for the paper's hardware and not times of this card,
+   finite with ``GPU`` at 1.0, and the orderings
+   ``tests/test_integration.py::test_hwmodel_orderings`` asserts, printed;
+5. where the time goes: CUDA-event times of each stage of a shade frame and
    of a sort frame, replayed from the main path's saved states;
-5. kernels: the inputs of each kernel are captured from one more real frame
+6. kernels: the inputs of each kernel are captured from one more real frame
    of the main path, and each kernel is held against its plain version on
    them (integer outputs exactly, floats within 128 ulps x magnitude) and
    timed with CUDA events beside it; ``rasterize`` also in full mode and in
@@ -44,7 +65,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    NaN and floor transmittances, dead lanes and n_live 0, 1, 256, 257;
    ``rc_lookup`` in both modes on cold, full and duplicate-way caches, hot
    slots, both index modes, odd batch shapes and dead viewers;
-6. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
+7. serve: the multi-viewer serving tick (``SessionManager`` + ``SyncDriver``
    + ``BatchedStepper``) serves 4 viewers of 12 frames each, arriving 2
    ticks apart, in 4 slots at the same size, once with one viewer per scene
    (4 scenes whose orbits start 90 deg apart) and once with all 4 viewers
@@ -60,7 +81,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    all 4 lanes live, and each kernel is held against its plain version
    there and timed, as is the CUDA route of
    ``ops.rasterize_resume_compacted_slots`` against its plain route;
-7. serving state (``serve_state_phase``), at the same size on one scene of
+8. serving state (``serve_state_phase``), at the same size on one scene of
    4 slots: (a) 8 pace-2 viewers oversubscribe the 4 slots
    (``oversubscribe=True``), on the kernel backend (launch counts set to 0
    just before, read just after) and on the reference backend, with lane
@@ -77,11 +98,11 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    slot of a private stepper on both backends: both caches stay finite and
    differ only where the kernel path inserts its black NaN-frame misses,
    which the reference's NaN colors keep out (``nan_camera_check``);
-8. real time (``realtime_phase``), at the same size on one scene of 4
+9. real time (``realtime_phase``), at the same size on one scene of 4
    slots, every run on the kernel backend with the launch counts set to 0
-   just before and read just after: (a) the shared run of phase 6 under
+   just before and read just after: (a) the shared run of phase 7 under
    ``SyncDriver`` and then ``ThreadedDriver``, both traced, each equal to
-   phase 6's sync run bit for bit on every tick (images, hits, sorted
+   phase 7's sync run bit for bit on every tick (images, hits, sorted
    flags, sort log, cache); it prints both tick medians and loop walls,
    each tick's ``host_ms`` and ``overlap_ms``, the ``host_overlap`` share,
    the ticks where a worker ``plan_tick`` span overlaps a device ``shade``
@@ -89,17 +110,17 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    returning, and the host syncs inside the tick-11 ``step_dispatch``
    (``torch.cuda.set_sync_debug_mode('warn')``, by source line), and writes
    the trace to ``build/realtime_trace.json``, checked by
-   ``validate_chrome_trace``; (b) phase 7's faults run plus a planner-worker
+   ``validate_chrome_trace``; (b) phase 8's faults run plus a planner-worker
    death and a worker ``plan_exc`` under the threaded driver with the plan
    wait bounded at 2 s: it drains with every frame rendered, the counters
    equal the fired events, no planner thread leaks, and every tick equals
-   phase 7's sync faults run; (c) ``partition_scene`` of the scene (cells
+   phase 8's sync faults run; (c) ``partition_scene`` of the scene (cells
    of 0.4, chunks of 64) streamed, FULL within 3 cells and LOD within 5,
    through an unbounded arena under ``SyncDriver`` and through an arena
    sized to the prefetch ring of the run's cameras under
    ``ThreadedDriver``: every tick bit-identical, no stall after the first
    tick, prefetch hits, fewer resident bytes than the scene's;
-9. fleet (``fleet_phase``), at the same size: 6 viewers of 12 frames
+10. fleet (``fleet_phase``), at the same size: 6 viewers of 12 frames
    (arrivals 0, 0, 1, 2, 3, 5; sid 3 at pace 2; each on its own orbit and
    scene block) on 2 ``FleetManager`` workers of 4 slots that share the
    one card, every kernel-backend sync run with each worker's launches
@@ -122,7 +143,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    drains and the loss counters match ``plan_shrink`` on the snapshots;
    it prints the time to recover with the restores split out and the
    checkpoint bytes of each worker;
-10. print the total wall time, the ``{"kernels": [...]}`` line, then the
+11. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -200,6 +221,13 @@ FLEET_ARRIVALS = (0, 0, 1, 2, 3, 5)
 FLEET_PACES = (1, 1, 1, 2, 1, 1)
 FLEET_COLD_MOVE, FLEET_ALIGNED_MOVE = (8, 5, 0), (13, 3, 0)
 FLEET_CKPT_EVERY, FLEET_LOSS_TICK = 4, 6
+# the paper phase: PAPER_STEPS fine-tuning steps (Eqn. 4's loss, alpha and
+# theta of the JAX package's example) of the seed's scene with a
+# PAPER_LARGE_FRAC share of oversized Gaussians against targets rendered
+# from the main path's scene, over PAPER_FRAMES cameras at 30 FPS (the
+# example's trajectory: the camera moves 5 deg a frame), each visited twice
+PAPER_FRAMES, PAPER_FPS, PAPER_STEPS, PAPER_LARGE_FRAC = 6, 30.0, 12, 0.25
+PAPER_ALPHA, PAPER_THETA = 8.0, 0.03
 DEVICE = 'cuda'
 
 
@@ -1146,7 +1174,7 @@ def reference_check(pkg, scene, cams, records) -> None:
 
 
 def quality(pkg, scene, cams, records) -> None:
-    """PSNR against exact 3DGS of Lumina, S^2 alone and RC alone."""
+    """PSNR and SSIM against exact 3DGS of Lumina, S^2 alone and RC alone."""
     frames = sorted({pkg.CONFIG.window - 1, len(cams) - 1})
     exact = {i: pkg.lp.render_frame_baseline(
         scene, cams[i], lumina_config(pkg), device='cuda')[0] for i in frames}
@@ -1162,10 +1190,302 @@ def quality(pkg, scene, cams, records) -> None:
                 variants[name][i] = image
     for name, images in variants.items():
         dbs = {i: float(pkg.psnr(images[i], exact[i])) for i in frames}
+        ssims = {i: float(pkg.ssim(images[i], exact[i])) for i in frames}
         print(f'PSNR vs render_frame_baseline, {name}: ' + ', '.join(
-            f'frame {i} {db:.2f} dB' for i, db in dbs.items()), flush=True)
+            f'frame {i} {db:.2f} dB (SSIM {ssims[i]:.4f})'
+            for i, db in dbs.items()), flush=True)
         if name.startswith('S2+RC') and not min(dbs.values()) > PSNR_FLOOR_DB:
             fail(f'PSNR {min(dbs.values()):.2f} dB against the baseline')
+
+
+def dense_walk_check(pkg, scene, cam, cfg) -> dict:
+    """(a) The dense differentiable walk on frame 0's features at full
+    width, with grad on, against the chunked early-exit walk: every output
+    bit for bit.  Times (CUDA events) of the chunked walk, the dense
+    forward and the dense forward + backward (gradient of the colors' sum
+    into the four float feature arrays), and the peak memory of the
+    backward."""
+    import torch
+    rz = pkg.rasterize
+    with torch.no_grad():
+        proj = pkg.lp.project(scene, cam)
+        lists = pkg.lp.sort_scene(proj, cam.width, cam.height, cfg.capacity,
+                                  method=cfg.sort_method,
+                                  max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
+        feats = pkg.lp.gather_tile_features(proj, lists)
+    names = ('mean2d', 'conic', 'color', 'opacity')
+    leaves = {n: getattr(feats, n).clone().requires_grad_() for n in names}
+    gfeats = dataclasses.replace(feats, **leaves)
+    with torch.no_grad():
+        want_c, want = rz.rasterize_tiles(feats, lists.tiles_x,
+                                          k_record=cfg.k_record)
+    got_c, got = rz.rasterize_tiles(gfeats, lists.tiles_x,
+                                    k_record=cfg.k_record, early_exit=False)
+    if not got_c.requires_grad:
+        fail('paper (a): the dense walk built no graph')
+    if not torch.equal(got_c.detach(), want_c):
+        fail('paper (a): dense and chunked walks differ on the colors')
+    for f in dataclasses.fields(rz.RasterAux):
+        if not torch.equal(getattr(got, f.name).detach(),
+                           getattr(want, f.name)):
+            fail(f'paper (a): dense and chunked walks differ on {f.name}')
+    del got_c, got
+
+    def forward():
+        return rz.rasterize_tiles(gfeats, lists.tiles_x,
+                                  k_record=cfg.k_record, early_exit=False)
+
+    def forward_backward():
+        colors, _ = forward()
+        grads = torch.autograd.grad(colors.sum(), list(leaves.values()))
+        for n, g in zip(names, grads):
+            if not bool(torch.isfinite(g).all()):
+                fail(f'paper (a): the dense walk gave a non-finite {n} gradient')
+
+    chunked_ms = time_ms(lambda: rz.rasterize_tiles(
+        feats, lists.tiles_x, k_record=cfg.k_record), 3)
+    with torch.no_grad():
+        nograd_ms = time_ms(forward, 3)
+    fwd_ms = time_ms(forward, 3)
+    peak = None
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    fb_ms = time_ms(forward_backward, 3)
+    if DEVICE == 'cuda':
+        peak = torch.cuda.max_memory_allocated()
+    out = dict(tiles=int(feats.ids.shape[0]), list_len=int(feats.ids.shape[1]),
+               pairs=int(feats.ids.shape[0]) * int(feats.ids.shape[1]) * rz.P,
+               chunked_ms=chunked_ms, dense_nograd_ms=nograd_ms,
+               dense_forward_ms=fwd_ms, dense_forward_backward_ms=fb_ms,
+               peak_bytes=peak,
+               peak_above_inputs_bytes=None if peak is None else peak - base)
+    print('paper (a): the dense walk equals the chunked walk bit for bit on '
+          'the colors and every aux field, frame 0 at full width; '
+          + json.dumps(out), flush=True)
+    return out
+
+
+def paper_finetune_config(pkg, lr: float | None = None):
+    """Eqn. 4's loss with PAPER_ALPHA and PAPER_THETA; ``lr``, where given,
+    replaces the JAX example's one learning rate for every parameter."""
+    fcfg = pkg.finetune.FinetuneConfig(scale_alpha=PAPER_ALPHA,
+                                       scale_theta=PAPER_THETA)
+    if lr is None:
+        return fcfg
+    return dataclasses.replace(fcfg, adam=dataclasses.replace(fcfg.adam,
+                                                              lr=lr))
+
+
+def finetune_run(pkg, start, cams, gts, cfg_r, fcfg) -> tuple:
+    """(b) ``finetune`` for PAPER_STEPS steps, each step timed (host clock,
+    synchronised) with its peak memory, every gradient leaf checked finite
+    as ``adam.step`` receives it.  Returns (tuned scene, per-step rows)."""
+    import torch
+    rows, bad = [], []
+
+    def wrap(label, fn):
+        if label == 'adam':
+            def checked(params, grads, *a, **kw):
+                for name, g in zip(pkg.FIELDS, grads):
+                    if not bool(torch.isfinite(g).all()):
+                        bad.append((len(rows), name))
+                return fn(params, grads, *a, **kw)
+            return checked
+
+        def make_timed(*a, **kw):
+            step = fn(*a, **kw)
+
+            def timed(*sa, **skw):
+                if DEVICE == 'cuda':
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out = step(*sa, **skw)
+                if DEVICE == 'cuda':
+                    torch.cuda.synchronize()
+                rows.append(dict(
+                    ms=(time.perf_counter() - t) * 1e3,
+                    peak_bytes=torch.cuda.max_memory_allocated()
+                    if DEVICE == 'cuda' else None))
+                return out
+            return timed
+        return make_timed
+
+    with patched([(pkg.finetune, 'make_train_step', 'make_train_step'),
+                  (pkg.adam, 'step', 'adam')], wrap):
+        tuned, hist = pkg.finetune.finetune(start, cams, gts, fcfg, cfg_r,
+                                            PAPER_STEPS, device=DEVICE)
+    if bad:
+        fail(f'paper (b): non-finite gradients (step, leaf) {bad}')
+    for i, (row, m) in enumerate(zip(rows, hist)):
+        row.update({k: float(getattr(m, k)) for k in m._fields})
+        if not all(torch.isfinite(getattr(m, k)) for k in m._fields):
+            fail(f'paper (b): step {i} metrics not finite: {row}')
+        print(f'paper (b): step {i:2d} camera {i % len(cams)} '
+              f'loss {row["loss"]:.6f} l1 {row["l1"]:.6f} dssim '
+              f'{row["dssim"]:.6f} l_scale {row["l_scale"]:.6f} psnr '
+              f'{row["psnr"]:.4f} dB  {row["ms"]:.1f} ms  peak '
+              f'{row["peak_bytes"]} B', flush=True)
+    for p in pkg.finetune.params_of(tuned):
+        if not bool(torch.isfinite(p).all()):
+            fail('paper (b): the tuned scene is not finite')
+    if not rows[-1]['l_scale'] < rows[0]['l_scale']:
+        fail(f'paper (b): l_scale did not fall ({rows[0]["l_scale"]} -> '
+             f'{rows[-1]["l_scale"]})')
+    n = len(cams)
+    for j in range(min(n, len(rows) - n)):
+        if not rows[j + n]['loss'] < rows[j]['loss']:
+            fail(f'paper (b): camera {j} loss did not fall on its second '
+                 f'visit ({rows[j]["loss"]} -> {rows[j + n]["loss"]})')
+    return tuned, rows
+
+
+def rc_only_run(pkg, scene, cams, backend: str) -> list:
+    """RC-only frames (``use_s2=False``) through ``LuminSys``: per frame
+    (hits, image, cache tags, age, clock)."""
+    import torch
+    cfg = lumina_config(pkg, backend=backend, use_s2=False)
+    sys_ = pkg.lp.LuminSys(scene, cfg, cams[0], device=DEVICE)
+    out = []
+    with torch.no_grad():
+        for cam in cams:
+            image, st = sys_.step(cam)
+            c = sys_.cache
+            out.append((round(float(st.hit_rate) * WIDTH * HEIGHT), image,
+                        c.tags.clone(), c.age.clone(), c.clock.clone()))
+    return out
+
+
+def rc_quality_check(pkg, label: str, scene, cams, gts) -> dict:
+    """(c) RC-only frames of ``scene`` on the kernel backend (launch counts
+    set to 0 just before, read just after) and on the reference backend:
+    hits and cache state identical, images within 128 ulps; PSNR and SSIM
+    against ``gts`` and the hit rate of frames 1.. ."""
+    import torch
+    pkg.kernels.reset_launches()
+    kern = rc_only_run(pkg, scene, cams, 'kernel')
+    launches = dict(pkg.kernels.LAUNCHES)
+    for name in ('rasterize', 'rasterize_compact', 'rc_lookup'):
+        if launches[name] <= 0:
+            fail(f'paper (c) {label}: kernel {name} was not launched')
+    ref = rc_only_run(pkg, scene, cams, 'reference')
+    for i, (k, r) in enumerate(zip(kern, ref)):
+        if k[0] != r[0] or not all(torch.equal(x, y)
+                                   for x, y in zip(k[2:], r[2:])):
+            fail(f'paper (c) {label}: frame {i}: the backends made different '
+                 f'cache decisions (hits {k[0]} vs {r[0]})')
+        if not ulp_close(k[1], r[1]):
+            fail(f'paper (c) {label}: frame {i}: kernel and reference images '
+                 f'differ by more than {ULPS} ulps')
+    pixels = WIDTH * HEIGHT
+    out = dict(psnr_db=[float(pkg.psnr(k[1], g)) for k, g in zip(kern, gts)],
+               ssim=[float(pkg.ssim(k[1], g)) for k, g in zip(kern, gts)],
+               hit_rate=[k[0] / pixels for k in kern], launches=launches)
+    out['mean_psnr_db'] = statistics.mean(out['psnr_db'])
+    out['mean_ssim'] = statistics.mean(out['ssim'])
+    out['mean_hit_rate_frames_1_on'] = statistics.mean(out['hit_rate'][1:])
+    print(f'paper (c) RC-only, {label}: the reference backend made identical '
+          f'decisions on all {len(cams)} frames, images within {ULPS} ulps; '
+          + json.dumps(out), flush=True)
+    return out
+
+
+def hwmodel_check(pkg, scene, cams, records, cfg) -> dict:
+    """(d) The hardware model fed with the main path's frames: the
+    baseline's aux, the main path's hit rates, sorts amortised over the
+    window.  Its numbers are MODELED for the paper's hardware (mobile
+    Volta GPU, LuminCore, GSCore), not times of this card."""
+    import math
+    hw = pkg.hwmodel
+    pixels = WIDTH * HEIGHT
+    stats = []
+    for i, cam in enumerate(cams):
+        _, _, aux, lists = pkg.lp.render_frame_baseline(
+            scene, cam, lumina_config(pkg), device=DEVICE)
+        stats.append(hw.measure_frame(lists, aux,
+                                      hit_rate=records[i][0] / pixels,
+                                      sorted_this_frame=1.0 / cfg.window))
+    out = {}
+    for name, st in (('measured', stats),
+                     ('paper_mix', [hw.rescale_to_paper_mix(s) for s in stats])):
+        table = hw.evaluate_variants(st, window=cfg.window)
+        out[name] = table
+        if not all(math.isfinite(x) for row in table.values()
+                   for x in row.values()):
+            fail(f'paper (d): the {name} variant table is not finite')
+        if table['GPU']['speedup'] != 1.0:
+            fail(f'paper (d): GPU speedup {table["GPU"]["speedup"]} != 1.0')
+        print(f'paper (d): MODELED for the paper\'s hardware (not times of '
+              f'this card), stats {name}: ' + json.dumps(
+                  {v: {k: float(x) for k, x in row.items()}
+                   for v, row in table.items()}), flush=True)
+    out['masked_fraction'] = [s.masked_fraction for s in stats]
+    out['sig_fraction'] = [s.sig_fraction for s in stats]
+    print('paper (d): measured on this run, per frame: ' + json.dumps(
+        {k: out[k] for k in ('masked_fraction', 'sig_fraction')}), flush=True)
+    sp = {v: m['speedup'] for v, m in out['measured'].items()}
+    en = {v: m['norm_energy'] for v, m in out['measured'].items()}
+    orderings = {
+        "sp['Lumina'] >= sp['S2-Acc'] >= sp['NRU+GPU'] > 1.0":
+            sp['Lumina'] >= sp['S2-Acc'] >= sp['NRU+GPU'] > 1.0,
+        "sp['Lumina'] > sp['GPU'] == 1.0": sp['Lumina'] > sp['GPU'] == 1.0,
+        "sp['RC-GPU'] < sp['NRU+GPU']": sp['RC-GPU'] < sp['NRU+GPU'],
+        "en['Lumina'] < en['NRU+GPU'] < 1.0":
+            en['Lumina'] < en['NRU+GPU'] < 1.0,
+        "0 < sp['GSCore'] < sp['Lumina']": 0 < sp['GSCore'] < sp['Lumina']}
+    print('paper (d): orderings of test_hwmodel_orderings on the modeled '
+          'table (a finding, not a gate): ' + json.dumps(
+              {k: bool(v) for k, v in orderings.items()}),
+          flush=True)
+    return out
+
+
+def paper_phase(pkg, scene, cams, records, cfg) -> None:
+    """The paper's evaluation on the main path's scene at full width: (a)
+    the dense differentiable walk against the chunked walk, (b) fine-tuning
+    a copy of the scene with oversized Gaussians, (c) RC-only quality
+    before and after, (d) the hardware model on the main path's frames."""
+    import torch
+    t0 = time.perf_counter()
+    dense_walk_check(pkg, scene, cams[0], cfg)
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    print(f'paper (a) took {time.perf_counter() - t0:.1f} s', flush=True)
+
+    t0 = time.perf_counter()
+    ft_cams = pkg.orbit_trajectory(PAPER_FRAMES, fps=PAPER_FPS, width=WIDTH,
+                                   height_px=HEIGHT, device=DEVICE)
+    cfg_r = lumina_config(pkg, use_s2=False, use_rc=False)
+    gts = [pkg.lp.render_frame_baseline(scene, c, cfg_r, device=DEVICE)[0]
+           for c in ft_cams]
+    start = pkg.structured_scene(SEED, GAUSSIANS,
+                                 large_gaussian_frac=PAPER_LARGE_FRAC,
+                                 device=DEVICE)
+    tuned, _ = finetune_run(pkg, start, ft_cams, gts, cfg_r,
+                            paper_finetune_config(pkg))
+    print(f'paper (b) took {time.perf_counter() - t0:.1f} s', flush=True)
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    before = rc_quality_check(pkg, 'before fine-tuning', start, ft_cams, gts)
+    after = rc_quality_check(pkg, 'after fine-tuning', tuned, ft_cams, gts)
+    print('paper (c): RC-only mean PSNR {:.4f} -> {:.4f} dB, SSIM {:.4f} -> '
+          '{:.4f}, hit rate of frames 1-{} {:.4f} -> {:.4f}'.format(
+              before['mean_psnr_db'], after['mean_psnr_db'],
+              before['mean_ssim'], after['mean_ssim'], PAPER_FRAMES - 1,
+              before['mean_hit_rate_frames_1_on'],
+              after['mean_hit_rate_frames_1_on']), flush=True)
+    print(f'paper (c) took {time.perf_counter() - t0:.1f} s', flush=True)
+    del start, tuned, gts
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hwmodel_check(pkg, scene, cams, records, cfg)
+    print(f'paper (d) took {time.perf_counter() - t0:.1f} s', flush=True)
 
 
 def serve_sessions(pkg, viewers_per_scene: int,
@@ -2558,8 +2878,12 @@ def load_package(src: pathlib.Path):
     sys.path.insert(0, str(src.resolve()))
     import repro_torch.checkpoint.manager as ckpt
     import repro_torch.configs.lumina_3dgs as arch
+    import repro_torch.core.finetune as finetune
+    import repro_torch.core.gaussians as gaussians
+    import repro_torch.core.hwmodel as hwmodel
     import repro_torch.core.metrics as metrics
     import repro_torch.core.pipeline as lp
+    import repro_torch.core.rasterize as rasterize
     import repro_torch.data.scenes as scenes
     import repro_torch.data.trajectory as trajectory
     import repro_torch.kernels as kernels
@@ -2567,6 +2891,7 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
+    import repro_torch.optim.adam as adam
     import repro_torch.obs as obs
     import repro_torch.serve as serve
     import repro_torch.runtime.straggler as straggler
@@ -2574,7 +2899,9 @@ def load_package(src: pathlib.Path):
     import repro_torch.serve.fleet as fleet
     import repro_torch.serve.streaming as streaming
     return types.SimpleNamespace(
-        kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr, ops=ops,
+        kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr,
+        ssim=metrics.ssim, finetune=finetune, adam=adam, hwmodel=hwmodel,
+        rasterize=rasterize, FIELDS=gaussians.FIELDS, ops=ops,
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
         orbit_trajectory=trajectory.orbit_trajectory, build=build,
         ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
@@ -2613,6 +2940,10 @@ def main() -> int:
     scene, cfg, cams, states, records, launches = main_path(pkg)
     reference_check(pkg, scene, cams, records)
     quality(pkg, scene, cams, records)
+    t0 = time.perf_counter()
+    paper_phase(pkg, scene, cams, records, cfg)
+    print(f'paper phase took {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
 
     last = len(cams) - 1
     sort_frame = cfg.window if len(cams) > cfg.window else 0

@@ -10,12 +10,19 @@ are ``nn.Parameter``s — the trainable representation of Kerbl et al. 2023:
   sh_dc         [N, 3]   degree-0 spherical-harmonic coefficients
   sh_rest       [N, 3, 3] degree-1 SH coefficients (3 basis fns x RGB)
 
-Rendering runs under ``torch.no_grad()``.
+Serving and the early-exit rasterizer run under ``torch.no_grad()``; the
+fine-tuning loss (``core.finetune``) renders through the dense walk
+(``render_frame_baseline(..., early_exit=False)``) with autograd on, so
+gradients reach these parameters.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from ..device import resolve_device
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -97,3 +104,42 @@ def eval_sh(scene: GaussianScene, view_dirs: torch.Tensor) -> torch.Tensor:
     c = c + SH_C1 * z * scene.sh_rest[..., 1, :]
     c = c - SH_C1 * x * scene.sh_rest[..., 2, :]
     return torch.clamp(c + 0.5, min=0.0)
+
+
+def geometric_mean_scale(scene: GaussianScene) -> torch.Tensor:
+    """Geometric mean of the three scale parameters, [N].
+
+    This is the `S` in the paper's scale-constrained loss (Eqn. 4).
+    """
+    return torch.exp(torch.mean(scene.log_scales, dim=-1))
+
+
+def init_scene(generator: torch.Generator, num_gaussians: int,
+               extent: float = 1.0, *, device=None) -> GaussianScene:
+    """Random scene initialization (centers uniform in a cube of half-side
+    ``extent``).  ``generator`` is a ``torch.Generator`` on ``device`` (the
+    card by default); its stream is not ``jax.random``'s, so one seed gives
+    another scene than the JAX package's."""
+    dev = resolve_device(device)
+    n = num_gaussians
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                           device=dev)
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    means = uniform((n, 3), -extent, extent)
+    log_scales = torch.log(uniform((n, 3), 0.02, 0.08) * extent)
+    quats = normal((n, 4))
+    quats[:, 0] += 2.0  # bias toward identity
+    opacity_logit = uniform((n,), -1.0, 2.0)
+    sh_dc = uniform((n, 3), -1.0, 1.0)
+    sh_rest = 0.1 * normal((n, 3, 3))
+    return GaussianScene(means, log_scales, quats, opacity_logit, sh_dc,
+                         sh_rest)
+
+
+def scene_num_params(scene: GaussianScene) -> int:
+    return sum(math.prod(getattr(scene, f).shape) for f in FIELDS)

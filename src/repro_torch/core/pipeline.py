@@ -95,19 +95,29 @@ class FrameStats:
 
 
 def render_frame_baseline(scene: GaussianScene, cam: Camera, cfg: LuminaConfig,
-                          *, device=None):
+                          *, live=None, early_exit: bool = True, device=None):
     """Full 3DGS pipeline (Projection -> Sorting -> Rasterization), no reuse.
-    Returns (image [H,W,3], tile colors, RasterAux, TileLists)."""
+    Returns (image [H,W,3], tile colors, RasterAux, TileLists).
+
+    With ``early_exit`` (the default) it runs under ``torch.no_grad()``
+    through the chunked early-exit rasterizer.  ``early_exit=False`` renders
+    through the dense walk with autograd on for projection, gather and the
+    walk, so a loss on the image reaches the scene's parameters (the
+    fine-tuning loss); sorting stays integer and outside the graph.  The
+    outputs are bit-identical either way.  ``live`` is the rasterizer's
+    per-pixel liveness (``rasterize_tiles``)."""
     dev = resolve_device(device)
     check_on(dev, scene=scene.means, camera=cam.position)
-    with torch.no_grad():
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not early_exit):
         proj = project(scene, cam)
-        lists = sort_scene(proj, cam.width, cam.height, cfg.capacity,
-                           method=cfg.sort_method,
-                           max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
+        with torch.no_grad():
+            lists = sort_scene(proj, cam.width, cam.height, cfg.capacity,
+                               method=cfg.sort_method,
+                               max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
         feats = gather_tile_features(proj, lists)
         colors, aux = rasterize_tiles(feats, lists.tiles_x,
-                                      k_record=cfg.k_record, bg=cfg.bg)
+                                      k_record=cfg.k_record, bg=cfg.bg,
+                                      live=live, early_exit=early_exit)
         image = assemble_image(colors, lists.tiles_x, lists.tiles_y,
                                cam.width, cam.height)
     return image, colors, aux, lists

@@ -97,6 +97,14 @@ def project(scene: GaussianScene, cam: Camera) -> Projected:
     )
 
 
+def recolor(scene: GaussianScene, cam: Camera, proj: Projected) -> Projected:
+    """Recompute only the view-dependent colors at a (new) camera pose.
+
+    The S^2 sorting-shared path re-evaluates colors from SH at every
+    rendered pose even when sorting is reused."""
+    return proj.replace(color=G.eval_sh(scene, scene.means - cam.position[None, :]))
+
+
 def reproject_geometry(scene: GaussianScene, cam: Camera,
                        proj: Projected) -> Projected:
     """Recompute screen-space geometry + color at pose ``cam``, but KEEP the

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .gaussians import ALPHA_MAX, ALPHA_SIGNIFICANT, TRANSMITTANCE_EPS
 from .tiling import TILE, TileFeatures
@@ -77,15 +78,70 @@ def pad_tile_features(feats: TileFeatures, chunk: int) -> TileFeatures:
                         ids=pz(feats.ids, -1))
 
 
+def _walk_step(px, py, live, state, gm, gc, gcol, gop, gid, i: int,
+               slots: torch.Tensor):
+    """One list position ``i`` for every pixel of the rows given: the
+    per-Gaussian arithmetic that the chunked and the dense walk share, op for
+    op, so their outputs are bit-identical.  ``gm`` [R, 2], ``gc`` [R, 3],
+    ``gcol`` [R, 3], ``gop`` and ``gid`` [R, 1]; ``state`` is (acc, trans,
+    rec, cnt, nsig, niter, itk) over [R, P]."""
+    acc, trans, rec, cnt, nsig, niter, itk = state
+    k_record = slots.numel()
+    dx = px - gm[:, 0:1]
+    dy = py - gm[:, 1:2]
+    power = (-0.5 * (gc[:, 0:1] * dx * dx + gc[:, 2:3] * dy * dy)
+             - gc[:, 1:2] * dx * dy)
+    alpha = torch.clamp(gop * torch.exp(power), max=ALPHA_MAX)
+    valid = (power <= 0.0) & (gid >= 0)
+    active = (trans > TRANSMITTANCE_EPS) & live
+    contrib = (alpha > ALPHA_SIGNIFICANT) & valid & active
+
+    w = torch.where(contrib, trans * alpha, 0.0)
+    acc = acc + w[..., None] * gcol[:, None, :]
+    trans = torch.where(contrib, trans * (1.0 - alpha), trans)
+    can = contrib & (cnt < k_record)
+    put = (slots == cnt[..., None]) & can[..., None]
+    rec = torch.where(put, gid[..., None], rec)
+    new_cnt = cnt + can.int()
+    itk = torch.where((new_cnt == k_record) & (cnt < k_record), i + 1, itk)
+    nsig = nsig + contrib.int()
+    niter = niter + (active & (gid >= 0)).int()
+    return acc, trans, rec, new_cnt, nsig, niter, itk
+
+
+def _dense_chunk(px, py, live, slots, start: int, mean2d, conic, color,
+                 opacity, ids, *state):
+    """The dense walk over one chunk of list positions ``start ..`` for
+    every tile; the features are the chunk's [T, chunk, ...] slices."""
+    for j in range(ids.shape[1]):
+        state = _walk_step(px, py, live, state, mean2d[:, j], conic[:, j],
+                           color[:, j], opacity[:, j, None], ids[:, j, None],
+                           start + j, slots)
+    return state
+
+
 def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
-                    bg: float = 0.0, live=None,
-                    chunk: int = 64) -> tuple[torch.Tensor, RasterAux]:
-    """Integrate colors for all tiles, chunked behind a per-tile early exit.
+                    bg: float = 0.0, live=None, chunk: int = 64,
+                    early_exit: bool = True) -> tuple[torch.Tensor, RasterAux]:
+    """Integrate colors for all tiles.
 
     ``live`` is anything broadcastable to [T, P] bool: dead pixels contribute
-    nothing and count zero iterations.  A tile stops once every live pixel's
-    transmittance bottoms out or its last valid Gaussian is behind it; the
-    skipped iterations could never change an output.
+    nothing and count zero iterations.
+
+    With ``early_exit`` (the default) the walk is chunked behind a per-tile
+    early exit: a tile stops once every live pixel's transmittance bottoms
+    out or its last valid Gaussian is behind it, and only the running tiles'
+    rows are walked (one host sync a chunk, rows written back in place).
+    The skipped iterations could never change an output.
+
+    ``early_exit=False`` is the dense walk over all K entries of every tile:
+    no row selection and no host sync, so autograd passes through it (the
+    fine-tuning loss renders this way).  Its outputs are bit-identical to
+    the early-exit walk's.  It walks ``chunk`` positions at a time; with
+    grad on, each chunk runs under activation checkpointing and is
+    recomputed in backward, so only the carries at chunk boundaries are
+    kept (at 1920x1080 and K = 1024, every position's residuals would not
+    fit in 80 GB).  Integer outputs carry no gradient.
 
     Returns (tile_colors [T, P, 3], aux).
     """
@@ -95,8 +151,6 @@ def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
     live_tp = torch.broadcast_to(
         torch.as_tensor(True if live is None else live, device=dev),
         (num_tiles, P))
-    feats = pad_tile_features(feats, chunk)
-    ncap = chunk_caps(feats.ids, chunk)
 
     acc = torch.zeros((num_tiles, P, 3), dtype=torch.float32, device=dev)
     trans = torch.ones((num_tiles, P), dtype=torch.float32, device=dev)
@@ -107,45 +161,21 @@ def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
     itk = torch.full_like(cnt, k)        # iter_at_k defaults to "all of them"
     slots = torch.arange(k_record, dtype=torch.int32, device=dev)
 
-    c = 0
-    while True:
-        running = (c < ncap) & (live_tp & (trans > TRANSMITTANCE_EPS)).any(1)
-        rows = running.nonzero().squeeze(1)
-        if rows.numel() == 0:
-            break
-        r_px, r_py, r_live = px[rows], py[rows], live_tp[rows]
-        r_acc, r_trans, r_rec = acc[rows], trans[rows], rec[rows]
-        r_cnt, r_nsig, r_niter, r_itk = cnt[rows], nsig[rows], niter[rows], itk[rows]
-        for i in range(c * chunk, (c + 1) * chunk):
-            gm = feats.mean2d[rows, i]
-            gc = feats.conic[rows, i]
-            gcol = feats.color[rows, i]
-            gop = feats.opacity[rows, i][:, None]
-            gid = feats.ids[rows, i][:, None]
-            dx = r_px - gm[:, 0:1]
-            dy = r_py - gm[:, 1:2]
-            power = (-0.5 * (gc[:, 0:1] * dx * dx + gc[:, 2:3] * dy * dy)
-                     - gc[:, 1:2] * dx * dy)
-            alpha = torch.clamp(gop * torch.exp(power), max=ALPHA_MAX)
-            valid = (power <= 0.0) & (gid >= 0)
-            active = (r_trans > TRANSMITTANCE_EPS) & r_live
-            contrib = (alpha > ALPHA_SIGNIFICANT) & valid & active
-
-            w = torch.where(contrib, r_trans * alpha, 0.0)
-            r_acc = r_acc + w[..., None] * gcol[:, None, :]
-            r_trans = torch.where(contrib, r_trans * (1.0 - alpha), r_trans)
-            can = contrib & (r_cnt < k_record)
-            put = (slots == r_cnt[..., None]) & can[..., None]
-            r_rec = torch.where(put, gid[..., None], r_rec)
-            new_cnt = r_cnt + can.int()
-            r_itk = torch.where((new_cnt == k_record) & (r_cnt < k_record),
-                                i + 1, r_itk)
-            r_cnt = new_cnt
-            r_nsig = r_nsig + contrib.int()
-            r_niter = r_niter + (active & (gid >= 0)).int()
-        acc[rows], trans[rows], rec[rows] = r_acc, r_trans, r_rec
-        cnt[rows], nsig[rows], niter[rows], itk[rows] = r_cnt, r_nsig, r_niter, r_itk
-        c += 1
+    if early_exit:
+        acc, trans, rec, nsig, niter, itk = _walk_chunked(
+            feats, chunk, px, py, live_tp, slots,
+            (acc, trans, rec, cnt, nsig, niter, itk))
+    else:
+        state = (acc, trans, rec, cnt, nsig, niter, itk)
+        grad = torch.is_grad_enabled()
+        for c0 in range(0, k, chunk):
+            sl = slice(c0, c0 + chunk)
+            args = (px, py, live_tp, slots, c0, feats.mean2d[:, sl],
+                    feats.conic[:, sl], feats.color[:, sl],
+                    feats.opacity[:, sl], feats.ids[:, sl], *state)
+            state = (checkpoint(_dense_chunk, *args, use_reentrant=False)
+                     if grad else _dense_chunk(*args))
+        acc, trans, rec, _, nsig, niter, itk = state
 
     acc = acc + trans[..., None] * bg
     aux = RasterAux(alpha_record=rec, n_significant=nsig, n_iterated=niter,
@@ -153,9 +183,47 @@ def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
     return acc, aux
 
 
+def _walk_chunked(feats: TileFeatures, chunk: int, px, py, live_tp, slots,
+                  state):
+    """The early-exit walk: each chunk over the rows of the tiles still
+    running, written back in place.  Returns (acc, trans, rec, nsig, niter,
+    itk)."""
+    feats = pad_tile_features(feats, chunk)
+    ncap = chunk_caps(feats.ids, chunk)
+    state = list(state)
+    c = 0
+    while True:
+        trans = state[1]
+        running = (c < ncap) & (live_tp & (trans > TRANSMITTANCE_EPS)).any(1)
+        rows = running.nonzero().squeeze(1)
+        if rows.numel() == 0:
+            break
+        r_px, r_py, r_live = px[rows], py[rows], live_tp[rows]
+        r_state = tuple(x[rows] for x in state)
+        for i in range(c * chunk, (c + 1) * chunk):
+            r_state = _walk_step(
+                r_px, r_py, r_live, r_state, feats.mean2d[rows, i],
+                feats.conic[rows, i], feats.color[rows, i],
+                feats.opacity[rows, i][:, None], feats.ids[rows, i][:, None],
+                i, slots)
+        for x, r in zip(state, r_state):
+            x[rows] = r
+        c += 1
+    acc, trans, rec, _, nsig, niter, itk = state
+    return acc, trans, rec, nsig, niter, itk
+
+
 def assemble_image(tile_colors: torch.Tensor, tiles_x: int, tiles_y: int,
                    width: int, height: int) -> torch.Tensor:
     """[T, P, 3] tile colors -> [H, W, 3] image (crops tile padding)."""
     img = tile_colors.reshape(tiles_y, tiles_x, TILE, TILE, 3)
     img = img.permute(0, 2, 1, 3, 4).reshape(tiles_y * TILE, tiles_x * TILE, 3)
+    return img[:height, :width]
+
+
+def scatter_tile_pixels(values: torch.Tensor, tiles_x: int, tiles_y: int,
+                        width: int, height: int) -> torch.Tensor:
+    """Like ``assemble_image`` but for scalar per-pixel stats: [T, P] -> [H, W]."""
+    img = values.reshape(tiles_y, tiles_x, TILE, TILE)
+    img = img.permute(0, 2, 1, 3).reshape(tiles_y * TILE, tiles_x * TILE)
     return img[:height, :width]

@@ -144,13 +144,46 @@ def tile_lists_sorted(proj: Projected, width: int, height: int,
     return TileLists(indices, count, tiles_x, tiles_y)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table[safe]`` for [T, K] ids ``idx`` whose -1 padding reads row 0
+    (``safe``).  The forward is that indexing.  The backward accumulates
+    into the rows the valid ids name, and the padding carries no gradient:
+    its slots are spread over distinct rows with zero gradients.  Plain
+    autograd would pile every padding slot onto row 0, and its sort-based
+    accumulation walks a run of equal indices one by one: at 1920x1080 with
+    lists of 1024, that took seconds a step."""
+
+    @staticmethod
+    def forward(ctx, table, idx, safe):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[safe]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        pad = idx < 0
+        spread = torch.arange(idx.numel(), device=idx.device).view(idx.shape)
+        rows = torch.where(pad, spread % ctx.rows, idx.long())
+        zero = pad.view(*pad.shape, *([1] * (grad.ndim - pad.ndim)))
+        out = grad.new_zeros((ctx.rows, *grad.shape[pad.ndim:]))
+        out.index_put_((rows,), torch.where(zero, 0.0, grad), accumulate=True)
+        return out, None, None
+
+
 def gather_tile_features(proj: Projected, lists: TileLists) -> TileFeatures:
+    """Each tile's list entries' features; padding reads Gaussian 0 with
+    opacity 0.  Differentiable in ``proj`` (``_TakeRows``)."""
     idx = lists.indices
     safe = torch.clamp(idx, min=0).long()
+
+    def take(x):
+        return _TakeRows.apply(x, idx, safe)
+
     return TileFeatures(
-        mean2d=proj.mean2d[safe],
-        conic=proj.conic[safe],
-        color=proj.color[safe],
-        opacity=torch.where(idx < 0, 0.0, proj.opacity[safe]),
+        mean2d=take(proj.mean2d),
+        conic=take(proj.conic),
+        color=take(proj.color),
+        opacity=torch.where(idx < 0, 0.0, take(proj.opacity)),
         ids=idx,
     )

@@ -71,11 +71,16 @@ def _torus(gen, n, center, r_major, r_minor, base_color, dev):
 
 
 def structured_scene(generator: torch.Generator | int, num_gaussians: int,
-                     scale_range=(0.015, 0.06), *, device=None) -> GaussianScene:
+                     scale_range=(0.015, 0.06), large_gaussian_frac: float = 0.0,
+                     *, device=None) -> GaussianScene:
     """A coherent multi-surface scene in the unit-ish cube around the origin.
 
     ``generator`` is a ``torch.Generator`` on ``device`` or an int seed for
-    one.  ``device`` defaults to the card.
+    one.  ``device`` defaults to the card.  ``large_gaussian_frac`` injects
+    a fraction of oversized Gaussians (all three scales 0.35) to recreate
+    the failure mode cache-aware fine-tuning fixes (Fig. 13).  That draw
+    comes after every other, and only when the fraction is above 0, so the
+    default stream, and the scene of every seed, stay as they were.
     """
     dev = resolve_device(device)
     if isinstance(generator, int):
@@ -100,6 +105,9 @@ def structured_scene(generator: torch.Generator | int, num_gaussians: int,
     # invert the SH DC activation: c = SH_C0 * dc + 0.5  =>  dc = (c - 0.5)/SH_C0
     sh_dc = (colors - 0.5) / SH_C0
     sh_rest = 0.08 * _normal(generator, (n, 3, 3), dev)
+    if large_gaussian_frac > 0:
+        big = torch.rand((n, 1), generator=generator, device=dev) < large_gaussian_frac
+        log_scales = torch.where(big, math.log(0.35), log_scales)
     return GaussianScene(means, log_scales, quats, opacity_logit, sh_dc, sh_rest)
 
 

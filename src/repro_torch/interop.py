@@ -18,6 +18,7 @@ from .core.gaussians import GaussianScene
 from .core.projection import Projected
 from .core.radiance_cache import CacheState
 from .data.scenes import ChunkedScene, SceneArrays
+from .optim.adam import AdamState
 
 
 def tensor(x, *, device) -> torch.Tensor:
@@ -30,6 +31,21 @@ def scene_from_numpy(means, log_scales, quats, opacity_logit, sh_dc, sh_rest,
     return GaussianScene(*(tensor(np.asarray(x, np.float32), device=device)
                            for x in (means, log_scales, quats, opacity_logit,
                                      sh_dc, sh_rest)))
+
+
+def adam_state_from_numpy(step, mu, nu, *, device) -> AdamState:
+    """A JAX ``AdamState`` as the port's: ``step`` its count, ``mu`` and
+    ``nu`` its moments as sequences of arrays in the parameters' order
+    (``FIELDS`` for a scene).  bfloat16 moments stay bfloat16."""
+    def moment(x):
+        x = np.asarray(x)
+        if x.dtype.name == 'bfloat16':   # numpy has no bfloat16 of its own
+            return tensor(x.astype(np.float32), device=device).to(torch.bfloat16)
+        return tensor(x, device=device)
+
+    return AdamState(step=tensor(np.asarray(step, np.int32), device=device),
+                     mu=tuple(moment(x) for x in mu),
+                     nu=tuple(moment(x) for x in nu))
 
 
 def camera_from_numpy(position, quat, fx, fy, cx, cy, width: int, height: int,

@@ -1,0 +1,89 @@
+"""AdamW over a sequence of tensors, as the JAX package's ``optim.adam``.
+
+  * optional bf16 first/second moments (``state_dtype``);
+  * global-norm gradient clipping;
+  * decoupled weight decay;
+  * bias correction inside the update: ``(m / c1) / (sqrt(v / c2) + eps)``.
+
+``torch.optim.Adam`` is not used: it places ``eps`` after the bias
+correction of ``v`` alone, and its defaults (``b2`` 0.999, no clipping)
+differ.  A scene's parameters go in ``FIELDS`` order
+(``[getattr(scene, f) for f in FIELDS]``); the moments follow the same
+order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor          # 0-d int32
+    mu: tuple                   # first moments, one per parameter
+    nu: tuple                   # second moments, one per parameter
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = 1.0
+    state_dtype: torch.dtype = torch.float32   # torch.bfloat16 to halve the state
+
+
+def init(params: Sequence[torch.Tensor], cfg: AdamConfig) -> AdamState:
+    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,  # noqa: E731
+                                  device=p.device)
+    return AdamState(
+        step=torch.zeros((), dtype=torch.int32, device=params[0].device),
+        mu=tuple(zeros(p) for p in params),
+        nu=tuple(zeros(p) for p in params))
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
+    """Returns (grads scaled to global norm at most ``max_norm``, the norm
+    before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tuple(g * scale.to(g.dtype) for g in grads), norm
+
+
+@torch.no_grad()
+def step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+         state: AdamState, cfg: AdamConfig):
+    """One AdamW update.  The parameters are updated in place; returns
+    (params, new state, pre-clip global gradient norm)."""
+    if cfg.clip_norm is not None:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+
+    count = state.step + 1
+    b1, b2 = cfg.b1, cfg.b2
+    cf = count.float()
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                      device=cf.device), cf)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                      device=cf.device), cf)
+
+    mu, nu = [], []
+    for p, g, m, v in zip(params, grads, state.mu, state.nu):
+        g32 = g.float()
+        m32 = b1 * m.float() + (1 - b1) * g32
+        v32 = b2 * v.float() + (1 - b2) * g32 * g32
+        update = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
+        if cfg.weight_decay:
+            update = update + cfg.weight_decay * p.float()
+        p.copy_((p.float() - cfg.lr * update).to(p.dtype))
+        mu.append(m32.to(cfg.state_dtype))
+        nu.append(v32.to(cfg.state_dtype))
+    return params, AdamState(count, tuple(mu), tuple(nu)), gnorm
