@@ -143,15 +143,36 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    drains and the loss counters match ``plan_shrink`` on the snapshots;
    it prints the time to recover with the restores split out and the
    checkpoint bytes of each worker;
-11. print the total wall time, the ``{"kernels": [...]}`` line, then the
+11. LM serve (``lm_serve_phase``): the continuous-batching token server
+   (``repro_torch.launch.serve``) with smollm-360m at its published widths
+   and depth (32 layers, d_model 960, 15 q / 5 kv heads of 64, d_ff 2560,
+   vocab 49,152, bfloat16, 409,007,040 parameters) and random weights from
+   a generator seeded 0 on the card: (a) ``Server(slots=4, max_seq=256,
+   full=True)`` drains the JAX package's ``run()`` requests (8, prompts of
+   8, 16 new tokens each) through ``drain``, twice: all complete with 128
+   tokens and the second run's tokens equal the first's; ticks, tokens,
+   tokens/s, wall time and the second run's peak memory above what it
+   started with printed; (b) 12 tokens decoded one at a time match
+   ``forward`` + ``logits`` within 8 bfloat16 ulps of the largest logit;
+   (c) float32 copies of the weights on the card and on the CPU:
+   ``prefill`` of 8 tokens then 4 ``decode_step``s,
+   logits within 5e-3 of the largest and argmax equal; (d) the decode step
+   at 4 slots x 256 positions: its median over 20 steps by CUDA events
+   beside its bound (the weights less the embedding table plus the whole
+   K/V cache, over 3.35 TB/s), the host's clock around it with and without
+   a sync, and its kernel time and launches from ``torch.profiler``.  No
+   hand-written kernel lies on this path;
+12. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import json
+import math
 import pathlib
 import shutil
 import statistics
@@ -166,6 +187,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 # rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12     # dense, on the tensor cores
 ULPS = 128
 # float operations per examined pixel-Gaussian pair (dx, dy, quadratic form,
 # power, exp counted as one, opacity product, clamp) and per contribution
@@ -228,6 +250,26 @@ FLEET_CKPT_EVERY, FLEET_LOSS_TICK = 4, 6
 # example's trajectory: the camera moves 5 deg a frame), each visited twice
 PAPER_FRAMES, PAPER_FPS, PAPER_STEPS, PAPER_LARGE_FRAC = 6, 30.0, 12, 0.25
 PAPER_ALPHA, PAPER_THETA = 8.0, 0.03
+# the LM serve phase: smollm-360m at its published widths and depth
+# (LM_FULL) serving the JAX package's run() defaults (8 requests, prompts of
+# 8, 16 new tokens each) in 4 slots of 256 positions; (b) decodes
+# LM_CHECK_TOKENS tokens against forward; (c) prefills LM_CPU_PROMPT tokens
+# and decodes LM_CPU_STEPS more on the card and on the CPU; (d) times the
+# decode step over LM_TIMED_STEPS steps.  Published smollm-360m has
+# 409,007,040 parameters in this layout (untied embed and unembed).
+LM_ARCH, LM_FULL, LM_PARAMS = 'smollm-360m', True, 409_007_040
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 4, 256, 8, 8, 16
+LM_CHECK_TOKENS, LM_CPU_PROMPT, LM_CPU_STEPS, LM_TIMED_STEPS = 12, 8, 4, 20
+# (b): bfloat16 weights and activations; forward's flash attention rounds
+# Q, K, P and V to bfloat16 where decode keeps float32 scores.  Measured on
+# an H100: 0.0508 on logits up to 2.77, 3.25 bfloat16 ulps of the largest.
+# Bound: 8 ulps of the largest logit (0.125 at 2-4).
+LM_DECODE_ULPS = 8
+# (c): float32 weights on both devices (TF32 off); the two differ by the
+# order of float32 sums and the bfloat16 roundings in flash attention that
+# such differences flip (measured on an H100: up to 1.12e-3, at the
+# prefill).  Bound on max |card - cpu| / max |cpu| of the logits.
+LM_CPU_REL = 5e-3
 DEVICE = 'cuda'
 
 
@@ -2872,6 +2914,205 @@ def fleet_phase(pkg, scene) -> dict:
     return out
 
 
+def lm_prefill_then_decode(pkg, model, cfg, toks, n_prompt: int) -> list:
+    """Logits of ``prefill`` over the first ``n_prompt`` tokens, then of one
+    teacher-forced ``decode_step`` a further token, as float32 CPU
+    tensors."""
+    lg, (k, v) = model.prefill(toks[:, :n_prompt])
+    out = [lg.float().cpu()]
+    state = pkg.registry.init_decode_state(cfg, toks.shape[0],
+                                           toks.shape[1], device=toks.device)
+    state[0][:, :, :n_prompt] = k
+    state[1][:, :, :n_prompt] = v
+    for t in range(n_prompt, toks.shape[1]):
+        lg, state = model.decode_step(toks[:, t:t + 1], state, t)
+        out.append(lg.float().cpu())
+    return out
+
+
+def lm_device_busy(fn, reps: int) -> dict | None:
+    """Kernel time and launches a call of ``fn``, from ``torch.profiler``
+    over ``reps`` calls; None where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in kernels)
+    if not kernel_us:
+        return None
+    return {'kernel_ms': kernel_us / reps / 1e3,
+            'launches': sum(e.count for e in kernels) / reps}
+
+
+def lm_serve_phase(pkg) -> dict:
+    """The LM token server at smollm-360m's full width and depth: (a) the
+    served run, twice; (b) decode against forward; (c) the card against
+    the CPU on float32 copies of the weights; (d) the decode step's time
+    beside its bound.  Returns the printed numbers."""
+    import torch
+    t_phase = time.perf_counter()
+    lm, registry = pkg.lm_serve, pkg.registry
+    cuda = DEVICE == 'cuda'
+    server = lm.Server(LM_ARCH, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                       full=LM_FULL, device=DEVICE)
+    cfg, model = server.cfg, server.params
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    embed_bytes = model.tok['embed'].numel() * model.tok['embed'].element_size()
+    cache_bytes = sum(c.numel() * c.element_size() for c in server.state)
+    out = {'arch': LM_ARCH, 'n_layers': cfg.n_layers, 'd_model': cfg.d_model,
+           'heads': [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()],
+           'd_ff': cfg.d_ff, 'vocab': cfg.vocab, 'dtype': cfg.dtype,
+           'params': n_params, 'param_bytes': param_bytes,
+           'kv_cache_bytes': cache_bytes}
+    print('lm serve: ' + json.dumps(out), flush=True)
+    if LM_FULL and ((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab, cfg.dtype)
+                    != (32, 960, 15, 5, 64, 2560, 49152, 'bfloat16')
+                    or n_params != LM_PARAMS):
+        fail(f'lm serve: {LM_ARCH} is not at its published widths: {out}')
+
+    # (a) the served run, twice on the same weights; the second run's peak
+    # memory is read beside what was held when it started (the weights, its
+    # K/V cache, and whatever earlier phases still hold)
+    runs = []
+    for i in range(2):
+        if i:
+            server = lm.Server(LM_ARCH, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                               full=LM_FULL, device=DEVICE)
+            server.params = model
+        pending = lm.synthetic_requests(LM_REQUESTS, LM_PROMPT, LM_MAX_NEW,
+                                        cfg.vocab, device=server.device)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        done, ticks = lm.drain(server, pending)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = {r.rid: list(r.out) for r in done}
+        tokens = sum(len(o) for o in outs.values())
+        runs.append(outs)
+        row = {'run': i + 1, 'completed': len(done), 'ticks': ticks,
+               'tokens': tokens, 'wall_s': wall, 'tok_per_s': tokens / wall}
+        print(f'lm serve (a) run {i + 1}: ' + json.dumps(row), flush=True)
+        out[f'run{i + 1}'] = row
+        if len(done) != LM_REQUESTS or tokens != LM_REQUESTS * LM_MAX_NEW:
+            fail(f'lm serve (a): {len(done)} of {LM_REQUESTS} requests, '
+                 f'{tokens} tokens')
+        if not all(0 <= t < cfg.vocab for o in outs.values() for t in o):
+            fail('lm serve (a): a token outside the vocab')
+    if cuda:
+        out['memory'] = {'held_bytes': held,
+                         'peak_above_held_bytes':
+                             torch.cuda.max_memory_allocated() - held}
+    if runs[0] != runs[1]:
+        fail('lm serve (a): the second run emitted other tokens')
+    del server
+    print(f'lm serve (a): identical tokens in both runs; request 0 '
+          f'{runs[0][0]}; run 2 memory {out.get("memory")}', flush=True)
+
+    # (b) decode against forward at full width, in bfloat16
+    toks = pkg.tokens.synthetic_batch(0, 0, 2, LM_CHECK_TOKENS, cfg.vocab,
+                                      device=DEVICE)['tokens']
+    with torch.no_grad():
+        fwd = model.logits(model(toks)[:, -1:])[:, 0].float()
+    state = registry.init_decode_state(cfg, 2, LM_CHECK_TOKENS + 4,
+                                       device=DEVICE)
+    for t in range(LM_CHECK_TOKENS):
+        lg, state = model.decode_step(toks[:, t:t + 1], state, t)
+    lg = lg.float()
+    gap = float((lg - fwd).abs().max())
+    peak = float(fwd.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
+    bound = LM_DECODE_ULPS * ulp
+    out['decode_vs_forward'] = {
+        'max_abs_gap': gap, 'max_abs_logit': peak, 'bound': bound,
+        'gap_in_bf16_ulps': gap / ulp,
+        'argmax_equal': bool((lg.argmax(-1) == fwd.argmax(-1)).all())}
+    print(f'lm serve (b) decode vs forward, {cfg.dtype}, '
+          f'{LM_CHECK_TOKENS} tokens: '
+          + json.dumps(out['decode_vs_forward']), flush=True)
+    if not gap <= bound:
+        fail(f'lm serve (b): decode and forward differ by {gap} > {bound}')
+    del state, fwd, lg
+
+    # (c) the card against the CPU, float32 copies of the same weights
+    cfg32 = dataclasses.replace(cfg, dtype='float32')
+    toks = pkg.tokens.synthetic_batch(1, 0, 1, LM_CPU_PROMPT + LM_CPU_STEPS,
+                                      cfg.vocab, device='cpu')['tokens']
+    t0 = time.perf_counter()
+    got = lm_prefill_then_decode(
+        pkg, copy.deepcopy(model).to(DEVICE, torch.float32), cfg32,
+        toks.to(DEVICE), LM_CPU_PROMPT)
+    want = lm_prefill_then_decode(
+        pkg, copy.deepcopy(model).to('cpu', torch.float32), cfg32, toks,
+        LM_CPU_PROMPT)
+    rels = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    argmax = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
+    out['card_vs_cpu'] = {'rel_err': rels, 'bound': LM_CPU_REL,
+                          'argmax_equal': argmax,
+                          'wall_s': time.perf_counter() - t0}
+    print('lm serve (c) card vs CPU, float32, prefill then '
+          f'{LM_CPU_STEPS} decode steps: ' + json.dumps(out['card_vs_cpu']),
+          flush=True)
+    if not (max(rels) <= LM_CPU_REL and all(argmax)):
+        fail(f'lm serve (c): card and CPU differ: {out["card_vs_cpu"]}')
+    del got, want
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the decode step at the served shape: device time, host time
+    state = registry.init_decode_state(cfg, LM_SLOTS, LM_MAX_SEQ,
+                                       device=DEVICE)
+    tok = pkg.tokens.synthetic_tokens(2, 0, LM_SLOTS, 1, cfg.vocab,
+                                      device=DEVICE)
+    pos = LM_MAX_SEQ // 2
+
+    def step():
+        model.decode_step(tok, state, pos)
+
+    ms = time_ms(step, LM_TIMED_STEPS)
+    host, host_sync = [], []
+    for _ in range(LM_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            torch.cuda.synchronize()
+        host_sync.append((time.perf_counter() - t0) * 1e3)
+    read = param_bytes - embed_bytes + cache_bytes
+    flops = 2 * (n_params - model.tok['embed'].numel()) * LM_SLOTS
+    busy = lm_device_busy(step, 3) if cuda else None
+    out['decode_step'] = {
+        'ms': ms, 'host_enqueue_ms': statistics.median(host),
+        'host_synced_ms': statistics.median(host_sync),
+        'device_busy': busy,
+        'bytes': read, 'bound_ms': read / PEAK_BYTES_PER_S * 1e3,
+        'flop_bound_ms': flops / PEAK_BF16_PER_S * 1e3,
+        'slots': LM_SLOTS, 'pos': pos}
+    print('lm serve (d) decode step (CUDA events, median of '
+          f'{LM_TIMED_STEPS}; host clock without and with a sync): '
+          + json.dumps(out['decode_step']), flush=True)
+    del state, model
+    if cuda:
+        torch.cuda.empty_cache()
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'lm serve phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -2891,6 +3132,9 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
+    import repro_torch.launch.serve as lm_serve
+    import repro_torch.models.registry as registry
+    import repro_torch.data.tokens as tokens
     import repro_torch.optim.adam as adam
     import repro_torch.obs as obs
     import repro_torch.serve as serve
@@ -2905,7 +3149,8 @@ def load_package(src: pathlib.Path):
         rk=rk, rcl=rcl, serve=serve, structured_scene=scenes.structured_scene,
         orbit_trajectory=trajectory.orbit_trajectory, build=build,
         ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
-        streaming=streaming, fleet=fleet, straggler=straggler)
+        streaming=streaming, fleet=fleet, straggler=straggler,
+        lm_serve=lm_serve, registry=registry, tokens=tokens)
 
 
 def main() -> int:
@@ -2983,6 +3228,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet_phase(pkg, scene)
     print(f'fleet phase took {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    lm_serve_phase(pkg)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

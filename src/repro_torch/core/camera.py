@@ -7,6 +7,8 @@ import math
 import numpy as np
 import torch
 
+from .gaussians import quat_to_rotmat
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -121,6 +123,13 @@ def make_camera(position, quat, fov_x_deg: float, width: int, height: int,
                   cx=_f32(width / 2.0, device), cy=_f32(height / 2.0, device),
                   width=width, height=height, near=near, far=far,
                   host_pose=host)
+
+
+def world_to_camera(cam: Camera, points: torch.Tensor) -> torch.Tensor:
+    """World points [N,3] -> camera-frame points [N,3] (z = depth)."""
+    r_wc = quat_to_rotmat(cam.quat)          # world-from-camera
+    r_cw = r_wc.T                            # camera-from-world
+    return (points - cam.position[None, :]) @ r_cw.T
 
 
 def expand_viewport(cam: Camera, margin_px: int) -> Camera:

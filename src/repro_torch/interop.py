@@ -18,12 +18,21 @@ from .core.gaussians import GaussianScene
 from .core.projection import Projected
 from .core.radiance_cache import CacheState
 from .data.scenes import ChunkedScene, SceneArrays
+from .models.transformer import Transformer
 from .optim.adam import AdamState
 
 
 def tensor(x, *, device) -> torch.Tensor:
-    """A numpy array (or array-like) as a tensor with the same dtype."""
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    """A numpy array (or array-like) as a tensor with the same dtype.
+
+    numpy has no bfloat16 of its own: the JAX package's bfloat16 arrays
+    carry ``ml_dtypes``' dtype, which ``torch.from_numpy`` refuses.  Their
+    bits are carried over as uint16 and viewed as ``torch.bfloat16``."""
+    x = np.array(x, copy=True)
+    if x.dtype.name == 'bfloat16':
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(x).to(device)
 
 
 def scene_from_numpy(means, log_scales, quats, opacity_logit, sh_dc, sh_rest,
@@ -145,3 +154,27 @@ def serving_state_from_numpy(arrays, meta: dict, *, device) -> tuple:
             tensor(getattr(arena, f), device=device)
             for f in SceneArrays._fields))}
     return out, dict(meta)
+
+
+def lm_params_from_numpy(params, cfg, *, device) -> Transformer:
+    """A JAX dense-family parameter tree (nested dicts of numpy arrays,
+    the blocks stacked on a leading [L] axis) as the port's model with the
+    same values and dtypes: the [L] axis is unstacked into one block a
+    layer."""
+    blocks = params['blocks']
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return tensor(np.asarray(tree)[i], device=device)
+
+    return Transformer(cfg, {
+        'tok': {k: tensor(v, device=device)
+                for k, v in params['tok'].items()},
+        'blocks': [layer(blocks, i) for i in range(cfg.n_layers)]})
+
+
+def kv_cache_from_numpy(caches, *, device) -> tuple:
+    """A JAX dense-family decode state (the K and V caches, [L, B, T, Hkv,
+    hd] each) as the port's."""
+    return tuple(tensor(c, device=device) for c in caches)

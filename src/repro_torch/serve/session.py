@@ -85,6 +85,9 @@ class ViewerSession:
     def done(self) -> bool:
         return self.cursor >= len(self.cams)
 
+    def current_cam(self) -> Camera:
+        return self.cams[self.cursor]
+
 
 class SessionManager:
     """Admit and evict viewers over a fixed set of render slots.
@@ -206,6 +209,34 @@ class SessionManager:
         sess.telemetry.admitted_tick = self.tick
         self.slot_session[slot] = sess
         self.stepper.admit(slot)
+
+    def admit_ready(self) -> list[int]:
+        """Admit arrived pending sessions into free slots now, outside the
+        tick plan: FIFO, or, with scene blocks, FIFO per admissible session
+        (a session whose block is full waits without blocking later
+        sessions bound for other scenes).  Returns the slots filled."""
+        with self._lock:
+            admitted = []
+            if self.viewers_per_scene == 1:
+                for slot in self.free_slots():
+                    if (not self.pending
+                            or self.pending[0].arrival_tick > self.tick):
+                        break
+                    self._admit_into(slot, self.pending.popleft())
+                    admitted.append(slot)
+                return admitted
+            waiting = deque()
+            while self.pending:
+                sess = self.pending.popleft()
+                free = [i for i in self._scene_block(sess.scene_id)
+                        if self.slot_session[i] is None]
+                if sess.arrival_tick <= self.tick and free:
+                    self._admit_into(free[0], sess)
+                    admitted.append(free[0])
+                else:
+                    waiting.append(sess)
+            self.pending = waiting
+            return admitted
 
     def vacate(self, slot: int) -> ViewerSession:
         """Remove the session occupying ``slot`` without marking it finished
