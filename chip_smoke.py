@@ -143,25 +143,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    drains and the loss counters match ``plan_shrink`` on the snapshots;
    it prints the time to recover with the restores split out and the
    checkpoint bytes of each worker;
-11. LM serve (``lm_serve_phase``): the continuous-batching token server
-   (``repro_torch.launch.serve``) with smollm-360m at its published widths
-   and depth (32 layers, d_model 960, 15 q / 5 kv heads of 64, d_ff 2560,
-   vocab 49,152, bfloat16, 409,007,040 parameters) and random weights from
-   a generator seeded 0 on the card: (a) ``Server(slots=4, max_seq=256,
-   full=True)`` drains the JAX package's ``run()`` requests (8, prompts of
-   8, 16 new tokens each) through ``drain``, twice: all complete with 128
-   tokens and the second run's tokens equal the first's; ticks, tokens,
-   tokens/s, wall time and the second run's peak memory above what it
-   started with printed; (b) 12 tokens decoded one at a time match
-   ``forward`` + ``logits`` within 8 bfloat16 ulps of the largest logit;
-   (c) float32 copies of the weights on the card and on the CPU:
-   ``prefill`` of 8 tokens then 4 ``decode_step``s,
-   logits within 5e-3 of the largest and argmax equal; (d) the decode step
-   at 4 slots x 256 positions: its median over 20 steps by CUDA events
-   beside its bound (the weights less the embedding table plus the whole
-   K/V cache, over 3.35 TB/s), the host's clock around it with and without
-   a sync, and its kernel time and launches from ``torch.profiler``.  No
-   hand-written kernel lies on this path;
+11. LM serve (``lm_serve_phase``, once for each of ``LM_ARCHS``): the
+   continuous-batching token server (``repro_torch.launch.serve``) with
+   smollm-360m (dense), granite-moe-1b-a400m (moe), whisper-base
+   (encdec), xlstm-1.3b (ssm) and zamba2-1.2b (hybrid), each at its
+   published widths and depth in bfloat16, with random weights from a
+   generator seeded 0 on the card; its parameter count and decode-state
+   bytes must equal the JAX package's for the config: (a)
+   ``Server(slots=4, max_seq=256, full=True)`` drains the JAX package's
+   ``run()`` requests (8, prompts of 8, 16 new tokens each) through
+   ``drain``, twice: all complete with 128 tokens and the second run's
+   tokens equal the first's; ticks, tokens, tokens/s, wall time and the
+   second run's peak memory above what it started with printed; (b) 12
+   tokens decoded one at a time match the registry's prefill (forward +
+   logits; whisper: ``decode_step`` over ``prepare_cross`` of seeded frames
+   against ``decode_train``) within 8 bfloat16 ulps of the largest logit;
+   (c) float32 copies of the weights (granite cut to 2 layers, xlstm to 8,
+   zamba2 to 6) on the card and on the CPU: ``prefill`` of 8 tokens then
+   4 ``decode_step``s, logits within 5e-3 of the largest and argmax equal;
+   (d) the decode step at 4 slots x 256 positions: its median over 20
+   steps by CUDA events beside its bound (the weights it reads, every
+   expert's for MoE, plus the whole decode state, over 3.35 TB/s), the
+   host's clock around it with and without a sync, and its kernel time
+   and launches from ``torch.profiler``.  Then ``lm_maverick_phase``:
+   llama4-maverick at published widths and 2 layers (18,553,267,200
+   parameters drawn in bfloat16 on the card): prefill of 8 tokens x 4
+   rows and 4 more decode steps, decode against forward within (b)'s
+   bound, peak memory.  No hand-written kernel lies on these paths;
 12. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -250,26 +258,59 @@ FLEET_CKPT_EVERY, FLEET_LOSS_TICK = 4, 6
 # example's trajectory: the camera moves 5 deg a frame), each visited twice
 PAPER_FRAMES, PAPER_FPS, PAPER_STEPS, PAPER_LARGE_FRAC = 6, 30.0, 12, 0.25
 PAPER_ALPHA, PAPER_THETA = 8.0, 0.03
-# the LM serve phase: smollm-360m at its published widths and depth
-# (LM_FULL) serving the JAX package's run() defaults (8 requests, prompts of
-# 8, 16 new tokens each) in 4 slots of 256 positions; (b) decodes
-# LM_CHECK_TOKENS tokens against forward; (c) prefills LM_CPU_PROMPT tokens
-# and decodes LM_CPU_STEPS more on the card and on the CPU; (d) times the
-# decode step over LM_TIMED_STEPS steps.  Published smollm-360m has
-# 409,007,040 parameters in this layout (untied embed and unembed).
-LM_ARCH, LM_FULL, LM_PARAMS = 'smollm-360m', True, 409_007_040
+# the LM serve phases: each arch of LM_ARCHS at its published widths and
+# depth (LM_FULL) serving the JAX package's run() defaults (8 requests,
+# prompts of 8, 16 new tokens each) in 4 slots of 256 positions; (b)
+# decodes LM_CHECK_TOKENS tokens against forward; (c) prefills
+# LM_CPU_PROMPT tokens and decodes LM_CPU_STEPS more on the card and on the
+# CPU; (d) times the decode step over LM_TIMED_STEPS steps.  Per arch: its
+# parameters in this layout (untied embed and unembed) and its decode-state
+# bytes at 4 x 256 (whisper's with the zero cross pair), both as the JAX
+# package's registry.abstract_params and abstract_decode_state give them,
+# and the depth of (c)'s float32 copies (None: the served model; xlstm's 8
+# is one super-block, with its sLSTM block; zamba2's 6 holds one
+# shared-attention point).  Whisper's (b) and (c) decode over
+# prepare_cross of LM_FRAMES seeded frames.
+LM_ARCHS = (('smollm-360m', 409_007_040, 41_943_040, None),
+            ('granite-moe-1b-a400m', 1_384_963_072, 50_331_648, 2),
+            ('whisper-base', 97_428_480, 25_165_824, None),
+            ('xlstm-1.3b', 3_730_780_160, 2_822_111_232, 8),
+            ('zamba2-1.2b', 1_170_160_128, 213_567_488, 6))
+LM_FULL = True
 LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 4, 256, 8, 8, 16
 LM_CHECK_TOKENS, LM_CPU_PROMPT, LM_CPU_STEPS, LM_TIMED_STEPS = 12, 8, 4, 20
+LM_FRAMES = 16
+# maverick at its published widths and LM_MAVERICK_DEPTH layers (one dense
+# + MoE super-block): LM_MAVERICK_PARAMS parameters, 37.1 GB in bfloat16;
+# prefill of LM_CPU_PROMPT tokens x LM_SLOTS rows, then LM_CPU_STEPS more
+# decode steps, each held against forward within (b)'s bound
+LM_MAVERICK, LM_MAVERICK_DEPTH = 'llama4-maverick-400b-a17b', 2
+LM_MAVERICK_PARAMS = 18_553_267_200
 # (b): bfloat16 weights and activations; forward's flash attention rounds
 # Q, K, P and V to bfloat16 where decode keeps float32 scores.  Measured on
-# an H100: 0.0508 on logits up to 2.77, 3.25 bfloat16 ulps of the largest.
-# Bound: 8 ulps of the largest logit (0.125 at 2-4).
+# an H100 for smollm-360m: 0.0508 on logits up to 2.77, 3.25 bfloat16 ulps
+# of the largest.  Bound: 8 ulps of the largest logit (0.125 at 2-4).
 LM_DECODE_ULPS = 8
+# (b) for the archs of LM_DECODE_F32: xlstm-1.3b's decode and forward part
+# at the first blocks by a rounding, and the gap grows ~1.3x a block
+# through all 48, in float32 as in bfloat16: each block rmsnorm-s its
+# input, so an input's relative rounding error reaches a branch of rms
+# 0.07, 3.4x the embedding's 0.02.  On an H100 the last block's gap is
+# 1.574 on 1.69 in bfloat16, 0.0396 on 1.57 in float32 (from 0 and 3.1e-7
+# at block 0; tools/lm_block_gap.py, chip call 2, PR 22), and the logits'
+# bfloat16 gap 3.59 on 4.0, argmax unequal.  There (b) holds decode against
+# forward on float32 copies of the weights (TF32 off) within the same 8
+# ulps and prints the bfloat16 gap beside it, ungated.
+LM_DECODE_F32 = ('xlstm-1.3b',)
 # (c): float32 weights on both devices (TF32 off); the two differ by the
 # order of float32 sums and the bfloat16 roundings in flash attention that
-# such differences flip (measured on an H100: up to 1.12e-3, at the
-# prefill).  Bound on max |card - cpu| / max |cpu| of the logits.
+# such differences flip (measured on an H100 for smollm-360m: up to
+# 1.12e-3, at the prefill).  Bound on max |card - cpu| / max |cpu| of the
+# logits.
 LM_CPU_REL = 5e-3
+# the parameters that a decode step does not read: the embedding table
+# (a gather of LM_SLOTS rows) and whisper's encoder
+LM_NOT_DECODED = ('tok.embed', 'enc.', 'frontend_proj', 'enc_norm')
 DEVICE = 'cuda'
 
 
@@ -2914,10 +2955,67 @@ def fleet_phase(pkg, scene) -> dict:
     return out
 
 
-def lm_prefill_then_decode(pkg, model, cfg, toks, n_prompt: int) -> list:
+def lm_leaves(tree) -> list:
+    """The tensors of a decode state (a pair, or nested dicts of them)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in lm_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in lm_leaves(v)]
+    return [tree]
+
+
+def lm_batch(pkg, cfg, seed: int, rows: int, n: int, device) -> dict:
+    """Seeded tokens [rows, n] and, for encdec, seeded standard-normal
+    frames [rows, LM_FRAMES, D] in the model dtype; made on the CPU, so the
+    same values land on every device."""
+    import torch
+    out = {'tokens': pkg.tokens.synthetic_batch(seed, 0, rows, n, cfg.vocab,
+                                                device='cpu')['tokens']}
+    if cfg.family == 'encdec':
+        gen = torch.Generator().manual_seed(seed)
+        out['frames'] = torch.randn((rows, LM_FRAMES, cfg.d_model),
+                                    generator=gen).to(getattr(torch,
+                                                              cfg.dtype))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def lm_prefill(pkg, model, cfg, batch, n: int):
+    """The registry's prefill logits over the first ``n`` tokens."""
+    ctx = pkg.registry.make_ctx(None, cfg)
+    return pkg.registry.make_prefill(cfg, ctx)(
+        model, dict(batch, tokens=batch['tokens'][:, :n]))
+
+
+def lm_decode(pkg, model, cfg, batch, max_seq: int) -> list:
+    """The logits of every token of ``batch`` teacher-forced through the
+    registry's decode step from a zeroed state (over ``prepare_cross`` of
+    the frames for encdec)."""
+    registry = pkg.registry
+    toks = batch['tokens']
+    state = registry.init_decode_state(cfg, toks.shape[0], max_seq,
+                                       device=toks.device)
+    if cfg.family == 'encdec':
+        state['cross'] = model.prepare_cross(batch['frames'])
+    step = registry.make_decode_step(cfg, registry.make_ctx(None, cfg))
+    out = []
+    for t in range(toks.shape[1]):
+        lg, state = step(model, toks[:, t:t + 1], state, t)
+        out.append(lg)
+    return out
+
+
+def lm_prefill_then_decode(pkg, model, cfg, batch, n_prompt: int) -> list:
     """Logits of ``prefill`` over the first ``n_prompt`` tokens, then of one
     teacher-forced ``decode_step`` a further token, as float32 CPU
-    tensors."""
+    tensors.  The dense family's decode continues from prefill's caches;
+    the other families' prefill returns no state, so their decode starts
+    from a zeroed state at position 0, as the server's admission does, and
+    the steps past the prompt are kept."""
+    toks = batch['tokens']
+    if cfg.family not in ('dense', 'vlm'):
+        steps = lm_decode(pkg, model, cfg, batch, toks.shape[1])
+        return [lm_prefill(pkg, model, cfg, batch, n_prompt).float().cpu()] \
+            + [lg.float().cpu() for lg in steps[n_prompt:]]
     lg, (k, v) = model.prefill(toks[:, :n_prompt])
     out = [lg.float().cpu()]
     state = pkg.registry.init_decode_state(cfg, toks.shape[0],
@@ -2928,6 +3026,19 @@ def lm_prefill_then_decode(pkg, model, cfg, toks, n_prompt: int) -> list:
         lg, state = model.decode_step(toks[:, t:t + 1], state, t)
         out.append(lg.float().cpu())
     return out
+
+
+def lm_gap(lg, fwd) -> dict:
+    """Decode's logits against forward's, in bfloat16 ulps of forward's
+    largest logit; ``ok`` within LM_DECODE_ULPS of them."""
+    lg, fwd = lg.float(), fwd.float()
+    gap = float((lg - fwd).abs().max())
+    peak = float(fwd.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
+    return {'max_abs_gap': gap, 'max_abs_logit': peak,
+            'bound': LM_DECODE_ULPS * ulp, 'gap_in_bf16_ulps': gap / ulp,
+            'argmax_equal': bool((lg.argmax(-1) == fwd.argmax(-1)).all()),
+            'ok': gap <= LM_DECODE_ULPS * ulp}
 
 
 def lm_device_busy(fn, reps: int) -> dict | None:
@@ -2951,41 +3062,44 @@ def lm_device_busy(fn, reps: int) -> dict | None:
             'launches': sum(e.count for e in kernels) / reps}
 
 
-def lm_serve_phase(pkg) -> dict:
-    """The LM token server at smollm-360m's full width and depth: (a) the
-    served run, twice; (b) decode against forward; (c) the card against
-    the CPU on float32 copies of the weights; (d) the decode step's time
-    beside its bound.  Returns the printed numbers."""
+def lm_serve_phase(pkg, arch: str, want_params: int, want_state_bytes: int,
+                   cpu_depth: int | None) -> dict:
+    """The LM token server for ``arch`` at its full width and depth: (a)
+    the served run, twice; (b) decode against forward; (c) the card against
+    the CPU on float32 copies of the weights (of a ``cpu_depth``-layer
+    model drawn alike, where given); (d) the decode step's time beside its
+    bound.  Returns the printed numbers."""
     import torch
     t_phase = time.perf_counter()
     lm, registry = pkg.lm_serve, pkg.registry
     cuda = DEVICE == 'cuda'
-    server = lm.Server(LM_ARCH, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+    server = lm.Server(arch, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                        full=LM_FULL, device=DEVICE)
     cfg, model = server.cfg, server.params
-    n_params = sum(p.numel() for p in model.parameters())
-    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    embed_bytes = model.tok['embed'].numel() * model.tok['embed'].element_size()
-    cache_bytes = sum(c.numel() * c.element_size() for c in server.state)
-    out = {'arch': LM_ARCH, 'n_layers': cfg.n_layers, 'd_model': cfg.d_model,
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    state_bytes = sum(c.numel() * c.element_size()
+                      for c in lm_leaves(server.state))
+    out = {'arch': arch, 'family': cfg.family, 'n_layers': cfg.n_layers,
+           'd_model': cfg.d_model,
            'heads': [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()],
            'd_ff': cfg.d_ff, 'vocab': cfg.vocab, 'dtype': cfg.dtype,
            'params': n_params, 'param_bytes': param_bytes,
-           'kv_cache_bytes': cache_bytes}
-    print('lm serve: ' + json.dumps(out), flush=True)
-    if LM_FULL and ((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                     cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab, cfg.dtype)
-                    != (32, 960, 15, 5, 64, 2560, 49152, 'bfloat16')
-                    or n_params != LM_PARAMS):
-        fail(f'lm serve: {LM_ARCH} is not at its published widths: {out}')
+           'decode_state_bytes': state_bytes}
+    print(f'lm serve {arch}: ' + json.dumps(out), flush=True)
+    if LM_FULL and (n_params, state_bytes) != (want_params, want_state_bytes):
+        fail(f'lm serve: {arch} has {n_params} parameters and '
+             f'{state_bytes} decode-state bytes at {LM_SLOTS} x '
+             f'{LM_MAX_SEQ}, not {want_params} and {want_state_bytes}')
 
     # (a) the served run, twice on the same weights; the second run's peak
     # memory is read beside what was held when it started (the weights, its
-    # K/V cache, and whatever earlier phases still hold)
+    # decode state, and whatever earlier phases still hold)
     runs = []
     for i in range(2):
         if i:
-            server = lm.Server(LM_ARCH, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+            server = lm.Server(arch, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                                full=LM_FULL, device=DEVICE)
             server.params = model
         pending = lm.synthetic_requests(LM_REQUESTS, LM_PROMPT, LM_MAX_NEW,
@@ -3005,71 +3119,76 @@ def lm_serve_phase(pkg) -> dict:
         runs.append(outs)
         row = {'run': i + 1, 'completed': len(done), 'ticks': ticks,
                'tokens': tokens, 'wall_s': wall, 'tok_per_s': tokens / wall}
-        print(f'lm serve (a) run {i + 1}: ' + json.dumps(row), flush=True)
+        print(f'lm serve {arch} (a) run {i + 1}: ' + json.dumps(row),
+              flush=True)
         out[f'run{i + 1}'] = row
         if len(done) != LM_REQUESTS or tokens != LM_REQUESTS * LM_MAX_NEW:
-            fail(f'lm serve (a): {len(done)} of {LM_REQUESTS} requests, '
-                 f'{tokens} tokens')
+            fail(f'lm serve {arch} (a): {len(done)} of {LM_REQUESTS} '
+                 f'requests, {tokens} tokens')
         if not all(0 <= t < cfg.vocab for o in outs.values() for t in o):
-            fail('lm serve (a): a token outside the vocab')
+            fail(f'lm serve {arch} (a): a token outside the vocab')
     if cuda:
         out['memory'] = {'held_bytes': held,
                          'peak_above_held_bytes':
                              torch.cuda.max_memory_allocated() - held}
     if runs[0] != runs[1]:
-        fail('lm serve (a): the second run emitted other tokens')
+        fail(f'lm serve {arch} (a): the second run emitted other tokens')
     del server
-    print(f'lm serve (a): identical tokens in both runs; request 0 '
+    print(f'lm serve {arch} (a): identical tokens in both runs; request 0 '
           f'{runs[0][0]}; run 2 memory {out.get("memory")}', flush=True)
 
-    # (b) decode against forward at full width, in bfloat16
-    toks = pkg.tokens.synthetic_batch(0, 0, 2, LM_CHECK_TOKENS, cfg.vocab,
-                                      device=DEVICE)['tokens']
-    with torch.no_grad():
-        fwd = model.logits(model(toks)[:, -1:])[:, 0].float()
-    state = registry.init_decode_state(cfg, 2, LM_CHECK_TOKENS + 4,
-                                       device=DEVICE)
-    for t in range(LM_CHECK_TOKENS):
-        lg, state = model.decode_step(toks[:, t:t + 1], state, t)
-    lg = lg.float()
-    gap = float((lg - fwd).abs().max())
-    peak = float(fwd.abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
-    bound = LM_DECODE_ULPS * ulp
-    out['decode_vs_forward'] = {
-        'max_abs_gap': gap, 'max_abs_logit': peak, 'bound': bound,
-        'gap_in_bf16_ulps': gap / ulp,
-        'argmax_equal': bool((lg.argmax(-1) == fwd.argmax(-1)).all())}
-    print(f'lm serve (b) decode vs forward, {cfg.dtype}, '
-          f'{LM_CHECK_TOKENS} tokens: '
-          + json.dumps(out['decode_vs_forward']), flush=True)
-    if not gap <= bound:
-        fail(f'lm serve (b): decode and forward differ by {gap} > {bound}')
-    del state, fwd, lg
+    # (b) decode against forward at full width, in bfloat16 (and on float32
+    # copies for LM_DECODE_F32)
+    batch = lm_batch(pkg, cfg, 0, 2, LM_CHECK_TOKENS, DEVICE)
+
+    def gap(m, c):
+        return lm_gap(lm_decode(pkg, m, c, batch, LM_CHECK_TOKENS + 4)[-1],
+                      lm_prefill(pkg, m, c, batch, LM_CHECK_TOKENS))
+
+    out['decode_vs_forward'] = gap(model, cfg)
+    gated = 'decode_vs_forward'
+    if arch in LM_DECODE_F32:
+        gated = 'decode_vs_forward_float32'
+        out[gated] = gap(copy.deepcopy(model).to(torch.float32),
+                         dataclasses.replace(cfg, dtype='float32'))
+    out[gated]['gated'] = True
+    for key in ('decode_vs_forward', 'decode_vs_forward_float32'):
+        if key in out:
+            print(f'lm serve {arch} (b) {key}, {LM_CHECK_TOKENS} tokens: '
+                  + json.dumps(out[key]), flush=True)
+    if not out[gated]['ok']:
+        fail(f'lm serve {arch} (b): decode and forward differ: '
+             f'{out[gated]}')
+    if cuda:
+        torch.cuda.empty_cache()
 
     # (c) the card against the CPU, float32 copies of the same weights
-    cfg32 = dataclasses.replace(cfg, dtype='float32')
-    toks = pkg.tokens.synthetic_batch(1, 0, 1, LM_CPU_PROMPT + LM_CPU_STEPS,
-                                      cfg.vocab, device='cpu')['tokens']
+    base, cfg_c = model, cfg
+    if cpu_depth is not None and LM_FULL:
+        cfg_c = dataclasses.replace(cfg, n_layers=cpu_depth)
+        base = registry.init_params(1, cfg_c, device=DEVICE)
+    cfg32 = dataclasses.replace(cfg_c, dtype='float32')
+    batch = lm_batch(pkg, cfg32, 1, 1, LM_CPU_PROMPT + LM_CPU_STEPS, 'cpu')
     t0 = time.perf_counter()
     got = lm_prefill_then_decode(
-        pkg, copy.deepcopy(model).to(DEVICE, torch.float32), cfg32,
-        toks.to(DEVICE), LM_CPU_PROMPT)
+        pkg, copy.deepcopy(base).to(DEVICE, torch.float32), cfg32,
+        {k: v.to(DEVICE) for k, v in batch.items()}, LM_CPU_PROMPT)
     want = lm_prefill_then_decode(
-        pkg, copy.deepcopy(model).to('cpu', torch.float32), cfg32, toks,
+        pkg, copy.deepcopy(base).to('cpu', torch.float32), cfg32, batch,
         LM_CPU_PROMPT)
     rels = [float((g - w).abs().max() / w.abs().max())
             for g, w in zip(got, want)]
     argmax = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
-    out['card_vs_cpu'] = {'rel_err': rels, 'bound': LM_CPU_REL,
-                          'argmax_equal': argmax,
+    out['card_vs_cpu'] = {'n_layers': cfg_c.n_layers, 'rel_err': rels,
+                          'bound': LM_CPU_REL, 'argmax_equal': argmax,
                           'wall_s': time.perf_counter() - t0}
-    print('lm serve (c) card vs CPU, float32, prefill then '
+    print(f'lm serve {arch} (c) card vs CPU, float32, prefill then '
           f'{LM_CPU_STEPS} decode steps: ' + json.dumps(out['card_vs_cpu']),
           flush=True)
     if not (max(rels) <= LM_CPU_REL and all(argmax)):
-        fail(f'lm serve (c): card and CPU differ: {out["card_vs_cpu"]}')
-    del got, want
+        fail(f'lm serve {arch} (c): card and CPU differ: '
+             f'{out["card_vs_cpu"]}')
+    del got, want, base
     if cuda:
         torch.cuda.empty_cache()
 
@@ -3079,9 +3198,10 @@ def lm_serve_phase(pkg) -> dict:
     tok = pkg.tokens.synthetic_tokens(2, 0, LM_SLOTS, 1, cfg.vocab,
                                       device=DEVICE)
     pos = LM_MAX_SEQ // 2
+    decode = registry.make_decode_step(cfg, registry.make_ctx(None, cfg))
 
     def step():
-        model.decode_step(tok, state, pos)
+        decode(model, tok, state, pos)
 
     ms = time_ms(step, LM_TIMED_STEPS)
     host, host_sync = [], []
@@ -3092,24 +3212,81 @@ def lm_serve_phase(pkg) -> dict:
         if cuda:
             torch.cuda.synchronize()
         host_sync.append((time.perf_counter() - t0) * 1e3)
-    read = param_bytes - embed_bytes + cache_bytes
-    flops = 2 * (n_params - model.tok['embed'].numel()) * LM_SLOTS
+    # the weights a step reads, and its products: each expert's weights
+    # multiply a bucket of moe_capacity rows, the rest LM_SLOTS rows
+    read = {k: p for k, p in named.items()
+            if not k.startswith(LM_NOT_DECODED)}
+    rows = {k: (pkg.moe.moe_capacity(cfg, LM_SLOTS)
+                if '.moe.w_' in k else LM_SLOTS) for k in read}
+    nbytes = sum(p.numel() * p.element_size() for p in read.values()) \
+        + state_bytes
+    flops = sum(2 * p.numel() * rows[k] for k, p in read.items())
     busy = lm_device_busy(step, 3) if cuda else None
     out['decode_step'] = {
         'ms': ms, 'host_enqueue_ms': statistics.median(host),
         'host_synced_ms': statistics.median(host_sync),
         'device_busy': busy,
-        'bytes': read, 'bound_ms': read / PEAK_BYTES_PER_S * 1e3,
+        'bytes': nbytes, 'bound_ms': nbytes / PEAK_BYTES_PER_S * 1e3,
         'flop_bound_ms': flops / PEAK_BF16_PER_S * 1e3,
         'slots': LM_SLOTS, 'pos': pos}
-    print('lm serve (d) decode step (CUDA events, median of '
+    print(f'lm serve {arch} (d) decode step (CUDA events, median of '
           f'{LM_TIMED_STEPS}; host clock without and with a sync): '
           + json.dumps(out['decode_step']), flush=True)
-    del state, model
+    del state, model, named, read
     if cuda:
         torch.cuda.empty_cache()
     out['phase_s'] = time.perf_counter() - t_phase
-    print(f'lm serve phase took {out["phase_s"]:.1f} s', flush=True)
+    print(f'lm serve {arch} phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
+def lm_maverick_phase(pkg) -> dict:
+    """llama4-maverick at its published widths and LM_MAVERICK_DEPTH
+    layers, its weights drawn in bfloat16 on the card: prefill of
+    LM_CPU_PROMPT tokens x LM_SLOTS rows, then LM_CPU_STEPS more decode
+    steps; decode held against forward at the prompt's end and at the
+    last token within (b)'s bound; peak memory."""
+    import torch
+    t_phase = time.perf_counter()
+    registry = pkg.registry
+    cuda = DEVICE == 'cuda'
+    cfg = pkg.configs.get_config(LM_MAVERICK)
+    cfg = dataclasses.replace(cfg, n_layers=LM_MAVERICK_DEPTH) if LM_FULL \
+        else cfg.reduced()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    model = registry.init_params(0, cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {'arch': LM_MAVERICK, 'n_layers': cfg.n_layers,
+           'd_model': cfg.d_model, 'n_experts': cfg.n_experts,
+           'params': n_params,
+           'param_bytes': sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    if LM_FULL and n_params != LM_MAVERICK_PARAMS:
+        fail(f'lm maverick: {n_params} parameters, not '
+             f'{LM_MAVERICK_PARAMS}')
+    n = LM_CPU_PROMPT + LM_CPU_STEPS
+    batch = lm_batch(pkg, cfg, 0, LM_SLOTS, n, DEVICE)
+    steps = lm_decode(pkg, model, cfg, batch, n)
+    for at in (LM_CPU_PROMPT, n):
+        out[f'decode_vs_forward_{at}'] = lm_gap(
+            steps[at - 1], lm_prefill(pkg, model, cfg, batch, at))
+    if cuda:
+        torch.cuda.synchronize()
+        out['memory'] = {'held_bytes': held,
+                         'peak_above_held_bytes':
+                             torch.cuda.max_memory_allocated() - held}
+    out['phase_s'] = time.perf_counter() - t_phase
+    print('lm maverick: ' + json.dumps(out), flush=True)
+    for at in (LM_CPU_PROMPT, n):
+        if not out[f'decode_vs_forward_{at}']['ok']:
+            fail(f'lm maverick: decode and forward differ at {at} tokens: '
+                 f'{out[f"decode_vs_forward_{at}"]}')
+    del model, steps
+    if cuda:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3132,7 +3309,9 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.rasterize as rk
     import repro_torch.kernels.rc_lookup as rcl
+    import repro_torch.configs as configs
     import repro_torch.launch.serve as lm_serve
+    import repro_torch.models.moe as moe
     import repro_torch.models.registry as registry
     import repro_torch.data.tokens as tokens
     import repro_torch.optim.adam as adam
@@ -3150,7 +3329,8 @@ def load_package(src: pathlib.Path):
         orbit_trajectory=trajectory.orbit_trajectory, build=build,
         ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
         streaming=streaming, fleet=fleet, straggler=straggler,
-        lm_serve=lm_serve, registry=registry, tokens=tokens)
+        lm_serve=lm_serve, registry=registry, tokens=tokens, moe=moe,
+        configs=configs)
 
 
 def main() -> int:
@@ -3229,7 +3409,9 @@ def main() -> int:
     fleet_phase(pkg, scene)
     print(f'fleet phase took {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
-    lm_serve_phase(pkg)
+    for arch, n_params, state_bytes, cpu_depth in LM_ARCHS:
+        lm_serve_phase(pkg, arch, n_params, state_bytes, cpu_depth)
+    lm_maverick_phase(pkg)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -18,6 +18,7 @@ from .core.gaussians import GaussianScene
 from .core.projection import Projected
 from .core.radiance_cache import CacheState
 from .data.scenes import ChunkedScene, SceneArrays
+from .models import moe, whisper, xlstm, zamba2
 from .models.transformer import Transformer
 from .optim.adam import AdamState
 
@@ -156,22 +157,71 @@ def serving_state_from_numpy(arrays, meta: dict, *, device) -> tuple:
     return out, dict(meta)
 
 
-def lm_params_from_numpy(params, cfg, *, device) -> Transformer:
-    """A JAX dense-family parameter tree (nested dicts of numpy arrays,
-    the blocks stacked on a leading [L] axis) as the port's model with the
-    same values and dtypes: the [L] axis is unstacked into one block a
-    layer."""
-    blocks = params['blocks']
+def _unstack(tree, n: int) -> list:
+    """A tree whose leaves are stacked on a leading [n] axis as n trees."""
+    def layer(t, i):
+        if isinstance(t, dict):
+            return {k: layer(v, i) for k, v in t.items()}
+        return np.asarray(t)[i]
+    return [layer(tree, i) for i in range(n)]
 
-    def layer(tree, i):
-        if isinstance(tree, dict):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return tensor(np.asarray(tree)[i], device=device)
 
-    return Transformer(cfg, {
-        'tok': {k: tensor(v, device=device)
-                for k, v in params['tok'].items()},
-        'blocks': [layer(blocks, i) for i in range(cfg.n_layers)]})
+def _lm_tree(params, cfg) -> dict:
+    """A JAX family's parameter tree with its stacked axes unstacked into
+    lists, as the port's model takes it (numpy leaves)."""
+    p = dict(params)
+    if cfg.family == 'encdec':
+        p['enc'] = _unstack(p['enc'], cfg.enc_layers or cfg.n_layers)
+        p['dec'] = _unstack(p['dec'], cfg.n_layers)
+    elif cfg.family == 'hybrid':
+        p['mamba'] = _unstack(p['mamba'], cfg.n_layers)
+    elif cfg.family == 'ssm':
+        n_super, se = xlstm._super(cfg)
+        p['blocks'] = _unstack(p['blocks'], n_super if se else cfg.n_layers)
+        if se:
+            for blk in p['blocks']:
+                blk['mlstm'] = _unstack(blk['mlstm'], se - 1)
+    else:
+        p['blocks'] = _unstack(p['blocks'],
+                               cfg.n_layers // max(cfg.moe_every, 1))
+    return p
+
+
+def _to_tensors(tree, *, device):
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, device=device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_tensors(v, device=device) for v in tree)
+    return tensor(tree, device=device)
+
+
+_LM = {'dense': Transformer, 'vlm': Transformer, 'moe': moe.MoE,
+       'encdec': whisper.Whisper, 'ssm': xlstm.XLSTM, 'hybrid': zamba2.Zamba2}
+
+
+def lm_params_from_numpy(params, cfg, *, device):
+    """A JAX LM parameter tree of any family (nested dicts of numpy arrays,
+    each run of layers stacked on a leading axis) as the port's model with
+    the same values and dtypes, each leaf's own (float32 leaves of a
+    bfloat16 config stay float32): the stacked axes are unstacked into one
+    entry a layer (moe ``blocks``; xlstm ``blocks`` and each one's
+    ``mlstm``; zamba2 ``mamba``; whisper ``enc`` and ``dec``)."""
+    return _LM[cfg.family](cfg, _to_tensors(_lm_tree(params, cfg),
+                                            device=device))
+
+
+def decode_state_from_numpy(state, cfg, *, device):
+    """A JAX decode state of ``cfg``'s family (``registry.
+    init_decode_state``'s tree, numpy leaves) as the port's: the same tree
+    of tensors.  A K/V pair for dense, vlm and moe; ``{'self', 'cross'}``
+    pairs for encdec; ``{'mlstm', 'slstm_h', 'slstm_c'}`` for ssm;
+    ``{'ssm': {'ssm', 'conv'}, 'kv_k', 'kv_v'}`` for hybrid."""
+    keyed = cfg.family in ('encdec', 'ssm', 'hybrid')
+    if isinstance(state, dict) != keyed:
+        raise ValueError(f'{cfg.name}: a {cfg.family} decode state is '
+                         f'{"a dict" if keyed else "a K/V pair"}, got '
+                         f'{type(state).__name__}')
+    return _to_tensors(state, device=device)
 
 
 def kv_cache_from_numpy(caches, *, device) -> tuple:

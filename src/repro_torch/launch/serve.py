@@ -13,7 +13,12 @@ A small but real serving core, as in the JAX package:
 The decode step writes K/V at its position for every row of the batch, so
 admitting a request overwrites the prompt K/V of the requests already in
 flight, and a slot admitted later skips positions (ROADMAP queue 3).  The
-port reproduces this, as it reproduces the reference.
+port reproduces this, as it reproduces the reference.  So it does the
+reference's partial reset of a reused slot: for the ``ssm`` family the
+rows of the state arrays of rank 4 or more (the mLSTM state) are zeroed,
+the sLSTM state is not, and a ``hybrid`` slot keeps its Mamba2 state; and
+an ``encdec`` slot decodes against the zero cross K/V of
+``registry.init_decode_state`` (ROADMAP queue 3).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --slots 4 --requests 12 --max-new 16            # on the card
@@ -21,7 +26,8 @@ port reproduces this, as it reproduces the reference.
         --device cpu --slots 2 --requests 3 --prompt-len 4 --max-new 4 \\
         --max-seq 32
 
-Only the ``dense`` and ``vlm`` families are ported (``models.registry``).
+Every family of ``models.registry`` serves: dense, vlm, moe, encdec, ssm
+and hybrid.
 """
 from __future__ import annotations
 
@@ -88,6 +94,12 @@ class Server:
         req.admitted_at = time.time()
         self.slot_req[slot] = req
         self.slot_pos[slot] = 0
+        if self.cfg.family == 'ssm':
+            # the reference's reset: zero this slot's row (axis -4) of each
+            # state array of rank >= 4
+            for a in self.state.values():
+                if a.ndim >= 4:
+                    a[..., slot, :, :, :] = 0
         for t in range(req.prompt.shape[0]):
             tok = self.cur_tok.clone()
             tok[slot, 0] = req.prompt[t]

@@ -55,10 +55,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def normal(gen: torch.Generator, shape, dtype,
+           scale: float = 0.02) -> torch.Tensor:
+    """``scale`` times a standard normal draw, made in ``dtype`` on
+    ``gen``'s device (no float32 copy of a bfloat16 tensor is held)."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(scale)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float = 0.02) -> torch.Tensor:
-    return (scale * torch.randn((d_in, d_out), generator=gen,
-                                device=gen.device)).to(dtype)
+    return normal(gen, (d_in, d_out), dtype, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +235,30 @@ def attention_decode(p, x, cfg, cache, pos: int):
     return out.reshape(b, 1, hp * hd) @ p['wo'], (k_cache, v_cache)
 
 
+def attention_cross(p, x, cfg, kv) -> torch.Tensor:
+    """Cross-attention (the whisper decoder): ``kv`` = (k, v) [B, T, Hkv,
+    hd] from the encoder states; no rope, no mask, through
+    ``flash_attention`` with its bfloat16 roundings."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    hp = p['wq'].shape[1] // hd
+    q = (x @ p['wq']).reshape(b, s, hp, hd)
+    k, v = kv
+    kr = repeat_kv(k, hp, cfg.n_heads)
+    vr = repeat_kv(v, hp, cfg.n_heads)
+    out = _mask_heads(flash_attention(q, kr, vr, causal=False), cfg.n_heads)
+    return out.reshape(b, s, hp * hd) @ p['wo']
+
+
+def cross_kv(p, enc: torch.Tensor, cfg) -> tuple:
+    """The cross-attention k/v [B, T, Hkv, hd] of encoder output ``enc``."""
+    b, s, _ = enc.shape
+    hd = cfg.resolved_head_dim()
+    k = (enc @ p['wk']).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (enc @ p['wv']).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -271,8 +302,7 @@ def padded_vocab(cfg, tp: int) -> int:
 
 def embed_params(gen: torch.Generator, cfg, dtype, tp: int = 1) -> dict:
     vp = padded_vocab(cfg, tp)
-    p = {'embed': (0.02 * torch.randn((vp, cfg.d_model), generator=gen,
-                                      device=gen.device)).to(dtype),
+    p = {'embed': normal(gen, (vp, cfg.d_model), dtype),
          'final_norm': torch.ones((cfg.d_model,), dtype=dtype,
                                   device=gen.device)}
     if not cfg.tie_embeddings:

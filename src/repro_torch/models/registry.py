@@ -3,9 +3,10 @@ serving.
 
 Per config: ``init_params`` (random weights from a seeded generator),
 ``make_ctx`` / ``tp_of``, and the serving entry points ``make_prefill``,
-``make_decode_step`` and ``init_decode_state``.  The ``dense`` and ``vlm``
-families (chameleon's backbone is dense with qk-norm) are ported; the
-others raise ``NotImplementedError`` and never fall back to another family.
+``make_decode_step`` and ``init_decode_state``, with the JAX package's
+branch for each family: ``dense`` and ``vlm`` (chameleon's backbone is
+dense with qk-norm), ``moe``, ``encdec`` (whisper), ``ssm`` (xlstm) and
+``hybrid`` (zamba2).
 """
 from __future__ import annotations
 
@@ -14,30 +15,27 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..runtime.sharding import ShardCtx
-from . import transformer
+from . import moe, transformer, whisper, xlstm, zamba2
 
 _FAMILY = {
     'dense': transformer,
     'vlm': transformer,      # chameleon backbone == dense + qk_norm
+    'moe': moe,
+    'encdec': whisper,
+    'ssm': xlstm,
+    'hybrid': zamba2,
 }
-
-_UNPORTED = ('moe', 'encdec', 'ssm', 'hybrid')
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f'{cfg.name}: the {cfg.family!r} family is not ported yet '
-            '(ROADMAP queue 1, item 3b)')
     return _FAMILY[cfg.family]
 
 
 def init_params(seed: int, cfg: ModelConfig, tp: int = 1, *, device=None):
     """The model with random weights from a generator seeded ``seed`` on
     ``device`` (the card unless the caller asks for the CPU)."""
-    mod = module_for(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return mod.init_params(gen, cfg, tp)
+    return module_for(cfg).init_params(gen, cfg, tp)
 
 
 def make_ctx(mesh, cfg: ModelConfig) -> ShardCtx:
@@ -52,16 +50,36 @@ def tp_of(mesh, cfg: ModelConfig) -> int:
 
 
 def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
-    module_for(cfg)
+    """``prefill(params, batch)`` -> the logits of the last position [B,
+    V]; ``batch`` holds ``tokens`` [B, S], and ``frames`` [B, S_enc, D]
+    for ``encdec``."""
+    if cfg.family in ('dense', 'vlm'):
+        def prefill(params, batch):
+            lg, _ = params.prefill(batch['tokens'])
+            return lg
+        return prefill
 
+    @torch.no_grad()
     def prefill(params, batch):
-        lg, _ = params.prefill(batch['tokens'])
-        return lg
+        if cfg.family == 'encdec':
+            h = params.decode_train(batch['tokens'],
+                                    params.encode(batch['frames']))
+        elif cfg.family == 'moe':
+            h, _ = params(batch['tokens'])
+        else:
+            h = params(batch['tokens'])
+        return params.logits(h[:, -1:])[:, 0]
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
-    module_for(cfg)
+    """``step(params, token, state, pos)`` -> (logits [B, V], state)."""
+    if cfg.family == 'encdec':
+        def step(params, token, state, pos: int):
+            lg, caches = params.decode_step(token, state['self'],
+                                            state['cross'], pos)
+            return lg, dict(state, self=caches)
+        return step
 
     def step(params, token, state, pos: int):
         return params.decode_step(token, state, pos)
@@ -70,5 +88,18 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       tp: int = 1, *, device=None):
-    return module_for(cfg).init_kv_cache(cfg, batch, max_seq, tp,
-                                         device=resolve_device(device))
+    """The zeroed decode state of ``batch`` rows of ``max_seq`` positions.
+    For ``encdec`` it is ``{'self': K/V pair, 'cross': K/V pair}``, the
+    cross pair zeros of the self pair's shape, as in the JAX package
+    (``whisper.prepare_cross`` fills it from frames)."""
+    dev = resolve_device(device)
+    if cfg.family == 'encdec':
+        return {'self': whisper.init_kv_cache(cfg, batch, max_seq, tp,
+                                              device=dev),
+                'cross': whisper.init_kv_cache(cfg, batch, max_seq, tp,
+                                               device=dev)}
+    if cfg.family == 'ssm':
+        return xlstm.init_state(cfg, batch, device=dev)
+    if cfg.family == 'hybrid':
+        return zamba2.init_state(cfg, batch, max_seq, tp, device=dev)
+    return module_for(cfg).init_kv_cache(cfg, batch, max_seq, tp, device=dev)

@@ -5,9 +5,8 @@ request finishes, with the throughput reported.
     PYTHONPATH=src python3 -m repro_torch.tools.serve_lm [--device cpu]
 
 The sizes are those of the JAX package's ``examples/serve_lm.py``: prompts
-of 6 tokens, 128 positions a slot, the reduced config of ``--arch``.  Only
-the ``dense`` and ``vlm`` families are ported.  It runs on the card unless
-``--device cpu`` is given.
+of 6 tokens, 128 positions a slot, the reduced config of ``--arch``, which may be any LM config of
+every family.  It runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ Every config name resolves to the same values as JAX's.  JAX's reduced
 request by request, in the same ticks.  The reference couples requests
 through its one scalar decode position (ROADMAP queue 3):
 ``test_reference_batching_fault_is_pinned`` pins it in both packages.  The
-unported families raise.
+registry serves every family, with logits of JAX's shapes.
 """
 import dataclasses
 import pathlib
@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +23,7 @@ import torch
 from repro import configs as jconfigs
 from repro.configs import base as jbase
 from repro.launch import serve as jserve
+from repro.models import registry as jreg
 
 from repro_torch import configs as tconfigs
 from repro_torch import interop
@@ -31,7 +33,7 @@ from repro_torch.models import registry as treg
 from torch_serve_parity import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-UNPORTED = ('granite-moe-1b-a400m', 'llama4-maverick-400b-a17b',
+FAMILIES = ('granite-moe-1b-a400m', 'llama4-maverick-400b-a17b',
             'whisper-base', 'xlstm-1.3b', 'zamba2-1.2b')
 
 
@@ -59,17 +61,42 @@ def test_configs_resolve_every_name_as_jax():
     assert tbase.LONG_CONTEXT_FAMILIES == jbase.LONG_CONTEXT_FAMILIES
 
 
-@pytest.mark.parametrize('arch', UNPORTED)
-def test_registry_refuses_unported_families(arch):
+@pytest.mark.parametrize('arch', FAMILIES)
+def test_registry_serves_every_family(arch):
+    """Every entry point returns for each family, and the prefill and
+    decode logits are finite, of JAX's shapes."""
+    jcfg = jconfigs.get_config(arch).reduced()
     cfg = tconfigs.get_config(arch).reduced()
-    for call in (lambda: treg.module_for(cfg),
-                 lambda: treg.init_params(0, cfg, device='cpu'),
-                 lambda: treg.make_decode_step(cfg, treg.make_ctx(None, cfg)),
-                 lambda: treg.make_prefill(cfg, treg.make_ctx(None, cfg)),
-                 lambda: treg.init_decode_state(cfg, 1, 8, device='cpu'),
-                 lambda: tserve.Server(arch, device='cpu')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            call()
+    ctx = treg.make_ctx(None, cfg)
+    b, s = 2, 6
+    jbatch = {'tokens': jax.ShapeDtypeStruct((b, s), jnp.int32)}
+    batch = {'tokens': torch.ones((b, s), dtype=torch.int32)}
+    if cfg.family == 'encdec':
+        jbatch['frames'] = jax.ShapeDtypeStruct((b, s, cfg.d_model),
+                                                jnp.float32)
+        batch['frames'] = torch.ones((b, s, cfg.d_model))
+    jctx = jreg.make_ctx(None, jcfg)
+    jparams = jreg.abstract_params(jcfg)
+    want = jax.eval_shape(jreg.make_prefill(jcfg, jctx), jparams, jbatch)
+    jstate = jreg.abstract_decode_state(jcfg, b, 8)
+    want_step, _ = jax.eval_shape(jreg.make_decode_step(jcfg, jctx), jparams,
+                                  jax.ShapeDtypeStruct((b, 1), jnp.int32),
+                                  jstate, jnp.int32(0))
+
+    assert treg.module_for(cfg).__name__.split('.')[-1] == \
+        jreg.module_for(jcfg).__name__.split('.')[-1]
+    params = treg.init_params(0, cfg, device='cpu')
+    lg = treg.make_prefill(cfg, ctx)(params, batch)
+    assert tuple(lg.shape) == want.shape and bool(torch.isfinite(lg).all())
+    state = treg.init_decode_state(cfg, b, 8, device='cpu')
+    assert [tuple(x.shape) for x in jax.tree_util.tree_leaves(state)] == \
+        [x.shape for x in jax.tree_util.tree_leaves(jstate)]
+    lg, state = treg.make_decode_step(cfg, ctx)(
+        params, torch.ones((b, 1), dtype=torch.int32), state, 0)
+    assert tuple(lg.shape) == want_step.shape
+    assert bool(torch.isfinite(lg).all())
+    server = tserve.Server(arch, slots=2, max_seq=8, device='cpu')
+    assert server.cfg == cfg
 
 
 def test_registry_has_no_mesh_and_no_silent_cpu(monkeypatch):
@@ -171,3 +198,16 @@ def test_serve_cli_on_the_cpu():
              'OMP_NUM_THREADS': '1'})
     assert out.returncode == 0, out.stderr
     assert 'smollm-360m: 3/3 requests, 6 ticks, 12 tokens' in out.stdout
+
+
+def test_serve_lm_tool_serves_a_recurrent_family_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, '-m', 'repro_torch.tools.serve_lm', '--arch',
+         'xlstm-1.3b', '--device', 'cpu', '--requests', '3'],
+        capture_output=True, text=True, timeout=120,
+        env={'PYTHONPATH': str(ROOT / 'src'), 'PATH': '/usr/bin:/bin',
+             'OMP_NUM_THREADS': '1'})
+    assert out.returncode == 0, out.stderr
+    assert 'xlstm-1.3b: 3/3 requests, ' in out.stdout
+    assert ' tokens, ' in out.stdout and out.stdout.rstrip().endswith(
+        'tok/s on cpu')
