@@ -170,7 +170,32 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    parameters drawn in bfloat16 on the card): prefill of 8 tokens x 4
    rows and 4 more decode steps, decode against forward within (b)'s
    bound, peak memory.  No hand-written kernel lies on these paths;
-12. print the total wall time, the ``{"kernels": [...]}`` line, then the
+12. LM train (``lm_train_phase``, once for each of ``LM_ARCHS``): each
+   config at its published widths and depth, bfloat16 weights with its
+   config's remat and float32 Adam moments: (a)
+   ``repro_torch.launch.train.train(full=True)`` for 3 steps of 8 x 256
+   tokens (the JAX trainer's batch) with 1 of warmup: every loss and grad
+   norm finite; the loss history, wall time and peak memory above what was
+   held printed (a config that does not fit halves its batch and says
+   so); (b) 3 steps of ``registry.make_train_step`` at lr 1e-4 on one
+   fixed batch from a fresh draw of the weights: the last loss below the
+   first; (c) float32 copies of the
+   weights (depth cut as in 11 (c)) on the card and on the CPU, one
+   ``make_train_step`` each on the same 1 x 64 tokens: losses within 1e-5
+   relative, grad norms within 1e-3 and every gradient leaf within 3e-2
+   in relative L2 norm, as run; where the model runs ``flash_attention``,
+   once more with its bfloat16 roundings taken out on both devices; every
+   gradient leaf of that second pair (xlstm: of the first) within 5e-3 of
+   the leaf's largest gradient; (d) smollm-360m only: one step with remat
+   and one without on the same weights and batch: equal losses, both
+   peaks and times and the gradient gap printed; (e) the step's median
+   over 3 steps by CUDA events beside its bounds (``flops.model_flops``
+   over 989 TFLOP/s; 22 B a parameter of Adam traffic plus the weights
+   read twice, over 3.35 TB/s), tokens/s, the host's clock, and the
+   kernel time, launches and device-busy share of one step from
+   ``torch.profiler`` tracing the device alone.  No hand-written kernel
+   lies on this path;
+13. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -311,6 +336,35 @@ LM_CPU_REL = 5e-3
 # the parameters that a decode step does not read: the embedding table
 # (a gather of LM_SLOTS rows) and whisper's encoder
 LM_NOT_DECODED = ('tok.embed', 'enc.', 'frontend_proj', 'enc_norm')
+# the LM train phase, for each arch of LM_ARCHS at its published widths and
+# depth (LM_FULL): (a) TRAIN_STEPS steps of launch.train.train at the JAX
+# trainer's TRAIN_BATCH x TRAIN_SEQ with TRAIN_WARMUP steps of warmup; (b)
+# TRAIN_FIT_STEPS steps at lr TRAIN_FIT_LR on one fixed batch; (c) one step
+# on TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens of float32 copies (the depth of
+# LM_ARCHS' (c)) on the card and on the CPU, the loss within TRAIN_LOSS_REL
+# and the grad norm within TRAIN_NORM_REL relative, each gradient leaf
+# within TRAIN_LEAF_L2 in relative L2 norm as run and within LM_CPU_REL of
+# its largest with flash's roundings taken out (lm_train_card_vs_cpu says
+# why); (d) remat on and off for
+# TRAIN_REMAT_ARCHS; (e) TRAIN_TIMED_STEPS steps timed.
+# TRAIN_FIT_LR: tests/test_models.py's 3e-3 suits the reduced configs; at
+# full width Adam's first sign-sized steps of lr 1e-3 (40 % of the 0.0025
+# scale of smollm's wo and w_down) raised the loss on the fixed batch before
+# it fell (smollm: 10.985, 11.001, 11.263 from (a)'s weights, on an H100 80GB
+# HBM3 at 700 W).  (b) starts from a fresh draw, as tests/test_models.py
+# does: from (a)'s weights, where xlstm's gradient norm is ~1e5, its loss
+# rose even at 1e-4 (11.214, 11.221, 11.236, the same card).  The byte bound
+# counts ADAM_BYTES a parameter (bfloat16 weight and gradient read, weight
+# written; float32 moments read and written) plus the weights read twice
+# (forward and backward).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 256, 3, 1
+TRAIN_FIT_STEPS, TRAIN_FIT_LR = 3, 1e-4
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 1, 64
+TRAIN_LOSS_REL, TRAIN_NORM_REL = 1e-5, 1e-3
+TRAIN_LEAF_L2 = 3e-2
+TRAIN_REMAT_ARCHS = ('smollm-360m',)
+TRAIN_TIMED_STEPS = 3
+ADAM_BYTES = 22
 DEVICE = 'cuda'
 
 
@@ -3042,14 +3096,14 @@ def lm_gap(lg, fwd) -> dict:
 
 
 def lm_device_busy(fn, reps: int) -> dict | None:
-    """Kernel time and launches a call of ``fn``, from ``torch.profiler``
-    over ``reps`` calls; None where the profiler shows no device time."""
+    """Kernel time and launches a call of ``fn``, and its five costliest
+    kernels, from ``torch.profiler`` over ``reps`` calls; None where the
+    profiler shows no device time.  The device alone is traced."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -3058,8 +3112,11 @@ def lm_device_busy(fn, reps: int) -> dict | None:
     kernel_us = sum(e.self_device_time_total for e in kernels)
     if not kernel_us:
         return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {'kernel_ms': kernel_us / reps / 1e3,
-            'launches': sum(e.count for e in kernels) / reps}
+            'launches': sum(e.count for e in kernels) / reps,
+            'top_kernels_ms': {e.key[:80]: e.self_device_time_total / reps
+                               / 1e3 for e in top}}
 
 
 def lm_serve_phase(pkg, arch: str, want_params: int, want_state_bytes: int,
@@ -3290,6 +3347,337 @@ def lm_maverick_phase(pkg) -> dict:
     return out
 
 
+def lm_train_batch(pkg, cfg, seed: int, rows: int, n: int, device) -> dict:
+    """Seeded next-token ``tokens`` and ``labels`` [rows, n] and, for
+    encdec, the trainer's ``_frames_for`` frames; made on the CPU, so the
+    same values land on every device."""
+    out = pkg.tokens.synthetic_batch(seed, 0, rows, n, cfg.vocab,
+                                     device='cpu')
+    if cfg.family == 'encdec':
+        out['frames'] = pkg.lm_train._frames_for(cfg, out['tokens'])
+    return {k: v.to(device) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def adam_calls(pkg, keep_grads: bool = False):
+    """Record, for each ``adam.step`` inside, the pre-clip grad norm (and,
+    with ``keep_grads``, the gradients it was given, by position)."""
+    calls = []
+
+    def wrap(_, fn):
+        def step(params, grads, *a, **kw):
+            out = fn(params, grads, *a, **kw)
+            calls.append({'grad_norm': float(out[2]),
+                          'grads': list(grads) if keep_grads else None})
+            return out
+        return step
+
+    with patched([(pkg.adam, 'step', 'adam')], wrap):
+        yield calls
+
+
+def peak_since(held: int) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() - held
+
+
+def memory_mark() -> int:
+    """Free the allocator's cache and start a peak window; returns the
+    bytes held now."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def lm_train_trainer(pkg, arch: str) -> tuple:
+    """(a): ``launch.train.train`` at TRAIN_BATCH rows, halved while the
+    card runs out of memory.  Returns (the model's config, the rows it
+    trained at, the printed numbers)."""
+    import torch
+    cuda = DEVICE == 'cuda'
+    rows = TRAIN_BATCH
+    while True:
+        held = memory_mark() if cuda else 0
+        t0 = time.perf_counter()
+        try:
+            with adam_calls(pkg) as calls:
+                model, _, hist = pkg.lm_train.train(
+                    arch, steps=TRAIN_STEPS, batch=rows, seq=TRAIN_SEQ,
+                    warmup=TRAIN_WARMUP, full=LM_FULL, device=DEVICE,
+                    log_every=0)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if rows == 1:
+                fail(f'lm train {arch} (a): out of memory at 1 row: {e}')
+            print(f'lm train {arch} (a): out of memory at {rows} x '
+                  f'{TRAIN_SEQ} tokens ({str(e).splitlines()[0]}); halving '
+                  'the batch', flush=True)
+            rows //= 2
+    norms = [c['grad_norm'] for c in calls]
+    row = {'rows': rows, 'seq': TRAIN_SEQ, 'steps': TRAIN_STEPS,
+           'warmup': TRAIN_WARMUP, 'loss': hist, 'grad_norm': norms,
+           'wall_s': time.perf_counter() - t0}
+    if cuda:
+        row['memory'] = {'held_bytes': held,
+                         'peak_above_held_bytes': peak_since(held)}
+    print(f'lm train {arch} (a) trainer: ' + json.dumps(row), flush=True)
+    if not (len(hist) == len(norms) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in hist + norms)):
+        fail(f'lm train {arch} (a): a loss or grad norm is not finite: '
+             f'{row}')
+    return model.cfg, rows, row
+
+
+def lm_train_fit_and_time(pkg, model, rows: int, arch: str) -> dict:
+    """(b) TRAIN_FIT_STEPS steps of ``model`` (a fresh draw, as
+    ``tests/test_models.py`` starts) on one fixed batch, the loss falling;
+    (e) TRAIN_TIMED_STEPS more, timed, beside the step's bounds."""
+    import torch
+    registry, adam = pkg.registry, pkg.adam
+    cuda = DEVICE == 'cuda'
+    cfg = model.cfg
+    acfg = adam.AdamConfig(lr=TRAIN_FIT_LR, state_dtype=torch.float32)
+    step_fn, _ = registry.make_train_step(cfg, registry.make_ctx(None, cfg),
+                                          acfg)
+    opt = adam.init(list(model.parameters()), acfg)
+    batch = lm_train_batch(pkg, cfg, 1, rows, TRAIN_SEQ, DEVICE)
+    state = {'opt': opt}
+
+    def step():
+        _, state['opt'], m = step_fn(model, state['opt'], batch)
+        return m
+
+    losses = [float(step()['loss']) for _ in range(TRAIN_FIT_STEPS)]
+    out = {'fit': {'lr': TRAIN_FIT_LR, 'loss': losses}}
+    print(f'lm train {arch} (b) {TRAIN_FIT_STEPS} steps on one batch: '
+          + json.dumps(out['fit']), flush=True)
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f'lm train {arch} (b): the loss did not fall: {losses}')
+
+    # (e) the step's time: CUDA events, and the host's clock without and
+    # with a sync, in the same steps
+    ms, host, host_sync = [], [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        host_sync.append((time.perf_counter() - t0) * 1e3)
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    shape = pkg.ShapeConfig('train', TRAIN_SEQ, rows, 'train')
+    flops = pkg.flops.model_flops(cfg, shape)
+    nbytes = ADAM_BYTES * n_params + 2 * param_bytes
+    med = statistics.median(ms) if ms else statistics.median(host_sync)
+    busy = lm_device_busy(step, 1) if cuda else None
+    out['step'] = {
+        'ms': med if cuda else None, 'host_enqueue_ms':
+        statistics.median(host), 'host_synced_ms':
+        statistics.median(host_sync), 'device_busy': busy,
+        'busy_share': busy['kernel_ms'] / med if busy else None,
+        'tokens_per_s': rows * TRAIN_SEQ / (med / 1e3),
+        'model_flops': flops, 'flop_bound_ms': flops / PEAK_BF16_PER_S * 1e3,
+        'bytes': nbytes, 'byte_bound_ms': nbytes / PEAK_BYTES_PER_S * 1e3,
+        'params': n_params, 'rows': rows, 'seq': TRAIN_SEQ,
+        'remat': cfg.remat}
+    out['step']['bound_ms'] = max(out['step']['flop_bound_ms'],
+                                  out['step']['byte_bound_ms'])
+    print(f'lm train {arch} (e) train step (CUDA events, median of '
+          f'{TRAIN_TIMED_STEPS}; host clock without and with a sync; '
+          'torch.profiler over one step): ' + json.dumps(out['step']),
+          flush=True)
+    return out
+
+
+def lm_train_remat(pkg, model, rows: int, arch: str) -> dict:
+    """(d) steps with remat and without, on copies of the same weights and
+    the same batch: equal first losses; the first steps' peaks and
+    gradient gap and the second steps' times printed."""
+    import torch
+    registry, adam = pkg.registry, pkg.adam
+    cuda = DEVICE == 'cuda'
+    batch = lm_train_batch(pkg, model.cfg, 2, rows, TRAIN_SEQ, DEVICE)
+    runs = {}
+    for remat in (True, False):
+        m = copy.deepcopy(model)
+        m.cfg = dataclasses.replace(model.cfg, remat=remat)
+        step_fn, acfg = registry.make_train_step(
+            m.cfg, registry.make_ctx(None, m.cfg),
+            adam.AdamConfig(state_dtype=torch.float32))
+        opt = adam.init(list(m.parameters()), acfg)
+        held = memory_mark() if cuda else 0
+        with adam_calls(pkg, keep_grads=True) as calls:
+            _, opt, metrics = step_fn(m, opt, batch)
+        loss = metrics['loss'].clone()
+        peak = peak_since(held) if cuda else None
+        # a second step, timed once the allocator holds what a step needs
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(m, opt, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        runs[remat] = {'loss': loss, 'grads': calls[0]['grads'],
+                       'ms': (time.perf_counter() - t0) * 1e3,
+                       'peak_above_held_bytes': peak}
+        del m, opt
+    on, off = runs[True], runs[False]
+    gap = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(on['grads'], off['grads']))
+    out = {'loss': [float(on['loss']), float(off['loss'])],
+           'ms': [on['ms'], off['ms']],
+           'peak_above_held_bytes': [on['peak_above_held_bytes'],
+                                     off['peak_above_held_bytes']],
+           'worst_leaf_grad_gap': gap}
+    print(f'lm train {arch} (d) remat on, off (the first step\'s loss, '
+          'peak and gradients; the second step\'s host clock with a sync): '
+          + json.dumps(out), flush=True)
+    if not torch.equal(on['loss'], off['loss']):
+        fail(f'lm train {arch} (d): remat changed the loss: {out}')
+    return out
+
+
+def f32_dot(eq: str, a, b):
+    """``layers._bf16_dot`` without its bfloat16 roundings."""
+    import torch
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def lm_train_step_pair(pkg, base, cfg32, batch: dict) -> list:
+    """One ``make_train_step`` on float32 copies of ``base`` on the card
+    and on the CPU: per device the loss, the grad norm and the gradients
+    (as float32 CPU tensors, by parameter name)."""
+    import torch
+    registry = pkg.registry
+    res = []
+    for dev in (DEVICE, 'cpu'):
+        m = copy.deepcopy(base).to(dev, torch.float32)
+        m.cfg = cfg32
+        step_fn, acfg = registry.make_train_step(
+            cfg32, registry.make_ctx(None, cfg32))
+        opt = pkg.adam.init(list(m.parameters()), acfg)
+        with adam_calls(pkg, keep_grads=True) as calls:
+            _, _, metrics = step_fn(m, opt, {k: v.to(dev)
+                                              for k, v in batch.items()})
+        res.append({'loss': float(metrics['loss']),
+                    'grad_norm': calls[0]['grad_norm'],
+                    'grads': dict(zip([k for k, _ in m.named_parameters()],
+                                      (g.float().cpu()
+                                       for g in calls[0]['grads'])))})
+        del m, opt, calls
+    return res
+
+
+def lm_train_gaps(got: dict, want: dict) -> dict:
+    """The losses, the grad norms and the worst gradient leaf, by its gap
+    over the leaf's largest gradient and by its relative L2 gap (as
+    ``tools/lm_grad_flips.py`` reads them)."""
+    gaps, l2 = {}, {}
+    for k, g in got['grads'].items():
+        w = want['grads'][k]
+        gaps[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+        l2[k] = float((g - w).norm()) / max(float(w.norm()), 1e-30)
+    worst, worst_l2 = max(gaps, key=gaps.get), max(l2, key=l2.get)
+    return {'loss': [got['loss'], want['loss']],
+            'loss_rel': abs(got['loss'] - want['loss']) / abs(want['loss']),
+            'grad_norm': [got['grad_norm'], want['grad_norm']],
+            'grad_norm_rel': abs(got['grad_norm'] - want['grad_norm'])
+            / want['grad_norm'],
+            'worst_leaf': worst, 'worst_leaf_gap': gaps[worst],
+            'worst_l2_leaf': worst_l2, 'worst_leaf_l2': l2[worst_l2]}
+
+
+def lm_train_card_vs_cpu(pkg, base, cfg_c, arch: str) -> dict:
+    """(c) one ``make_train_step`` on float32 copies of ``base`` on the card
+    and on the CPU, the same tokens: the losses, the grad norms and every
+    gradient leaf held.  As run, each leaf is held by its relative L2 gap:
+    its largest element's gap is no test there, since a 1-ulp difference
+    of a float32 sum flips a bfloat16 rounding of Q, K, P, V or of their
+    cotangents in ``flash_attention``, and through the depth such flips
+    move single elements of attention's gradients by up to a tenth of the
+    leaf's largest.  Where the model runs ``flash_attention``, the leaves'
+    largest elements are held on a second pair of steps with its roundings
+    taken out on both devices (``f32_dot``).  ``tools/lm_grad_flips.py``
+    measures both readings under 1-ulp noise on the weights, beside a
+    faulty attention backward."""
+    cfg32 = dataclasses.replace(cfg_c, dtype='float32', remat=False)
+    batch = lm_train_batch(pkg, cfg32, 3, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ,
+                           'cpu')
+    t0 = time.perf_counter()
+    out = {'n_layers': cfg_c.n_layers,
+           'tokens': [TRAIN_CPU_BATCH, TRAIN_CPU_SEQ],
+           'bounds': {'loss_rel': TRAIN_LOSS_REL, 'leaf_l2': TRAIN_LEAF_L2,
+                      'leaf_gap_unrounded': LM_CPU_REL,
+                      'grad_norm_rel': TRAIN_NORM_REL}}
+    out['as_run'] = lm_train_gaps(*lm_train_step_pair(pkg, base, cfg32,
+                                                      batch))
+    gated = [out['as_run']]
+    if cfg32.family != 'ssm':
+        with patched([(pkg.layers, '_bf16_dot', 'f32_dot')],
+                     lambda _, fn: f32_dot):
+            out['unrounded'] = lm_train_gaps(*lm_train_step_pair(
+                pkg, base, cfg32, batch))
+        gated.append(out['unrounded'])
+    out['wall_s'] = time.perf_counter() - t0
+    print(f'lm train {arch} (c) card vs CPU, float32, one step: '
+          + json.dumps(out), flush=True)
+    ok = all(g['loss_rel'] <= TRAIN_LOSS_REL
+             and g['grad_norm_rel'] <= TRAIN_NORM_REL for g in gated)
+    if not (ok and out['as_run']['worst_leaf_l2'] <= TRAIN_LEAF_L2
+            and gated[-1]['worst_leaf_gap'] <= LM_CPU_REL):
+        fail(f'lm train {arch} (c): card and CPU differ: {out}')
+    return out
+
+
+def lm_train_phase(pkg, arch: str, cpu_depth: int | None) -> dict:
+    """LM training of ``arch`` at its full width and depth: (a) the
+    trainer, (b) learning on one batch from a fresh draw of the weights
+    (seed 0), (e) the step's time, (d) remat on
+    and off (TRAIN_REMAT_ARCHS), (c) the card against the CPU on float32
+    copies (of a ``cpu_depth``-layer model drawn alike, where given).
+    Returns the printed numbers."""
+    import torch
+    t_phase = time.perf_counter()
+    cuda = DEVICE == 'cuda'
+    cfg, rows, out = lm_train_trainer(pkg, arch)
+    if cuda:
+        torch.cuda.empty_cache()
+    model = pkg.registry.init_params(0, cfg, device=DEVICE)
+    out.update(lm_train_fit_and_time(pkg, model, rows, arch))
+    if arch in TRAIN_REMAT_ARCHS:
+        out['remat'] = lm_train_remat(pkg, model, rows, arch)
+    if cpu_depth is not None and LM_FULL:
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+        cfg_c = dataclasses.replace(cfg, n_layers=cpu_depth)
+        base = pkg.registry.init_params(1, cfg_c, device=DEVICE)
+    else:
+        base, cfg_c = model, cfg
+        del model
+    out['card_vs_cpu'] = lm_train_card_vs_cpu(pkg, base, cfg_c, arch)
+    del base
+    if cuda:
+        torch.cuda.empty_cache()
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'lm train {arch} phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -3311,6 +3699,10 @@ def load_package(src: pathlib.Path):
     import repro_torch.kernels.rc_lookup as rcl
     import repro_torch.configs as configs
     import repro_torch.launch.serve as lm_serve
+    import repro_torch.launch.train as lm_train
+    import repro_torch.analysis.flops as flops
+    from repro_torch.configs.base import ShapeConfig
+    import repro_torch.models.layers as layers
     import repro_torch.models.moe as moe
     import repro_torch.models.registry as registry
     import repro_torch.data.tokens as tokens
@@ -3330,7 +3722,8 @@ def load_package(src: pathlib.Path):
         ckpt=ckpt, faults=faults, obs=obs, scenes=scenes,
         streaming=streaming, fleet=fleet, straggler=straggler,
         lm_serve=lm_serve, registry=registry, tokens=tokens, moe=moe,
-        configs=configs)
+        configs=configs, lm_train=lm_train, flops=flops, layers=layers,
+        ShapeConfig=ShapeConfig)
 
 
 def main() -> int:
@@ -3412,6 +3805,11 @@ def main() -> int:
     for arch, n_params, state_bytes, cpu_depth in LM_ARCHS:
         lm_serve_phase(pkg, arch, n_params, state_bytes, cpu_depth)
     lm_maverick_phase(pkg)
+    t0 = time.perf_counter()
+    for arch, _, _, cpu_depth in LM_ARCHS:
+        lm_train_phase(pkg, arch, cpu_depth)
+    print(f'LM train phases took {time.perf_counter() - t0:.1f} s',
+          flush=True)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

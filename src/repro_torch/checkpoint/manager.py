@@ -13,15 +13,15 @@
   * **Auto-resume**: ``restore_latest()`` picks the newest checkpoint that
     loads, falling back one step at a time past unreadable ones.
 
-A tree is walked by ``_flatten_with_names``: dicts (in sorted key order),
-dataclasses (in field order), tuples and lists are containers; tensors and
-numpy arrays are the leaves that are saved; anything else (ints, strings,
-None) is structure, which a load takes from the template it is given.  The
-manifest stores the leaf names and a checksum of each shard.
+A tree is walked in ``repro_torch.tree``'s order: dicts (in sorted key
+order), dataclasses (in field order), tuples and lists are containers;
+tensors and numpy arrays are the leaves that are saved; anything else
+(ints, strings, None) is structure, which a load takes from the template
+it is given.  The manifest stores the leaf names and a checksum of each
+shard.
 """
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
@@ -35,61 +35,49 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..tree import children, rebuild
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
 
 def _flatten_with_names(tree: Any, path: str = '') -> tuple[list, list]:
     """(names, leaves) of the tensor and numpy-array leaves of ``tree``."""
-    if isinstance(tree, (torch.Tensor, np.ndarray)):
+    if _is_leaf(tree):
         return [path], [tree]
     names, leaves = [], []
-    for key, child in _children(tree):
+    for key, child in children(tree):
         n, lv = _flatten_with_names(child, path + key)
         names += n
         leaves += lv
     return names, leaves
 
 
-def _children(tree: Any) -> list:
-    """``(name suffix, child)`` of a container, in flatten order."""
-    if isinstance(tree, dict):
-        return [(f'[{k!r}]', tree[k]) for k in sorted(tree)]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [(f'.{f.name}', getattr(tree, f.name))
-                for f in dataclasses.fields(tree)]
-    if isinstance(tree, (tuple, list)):
-        return [(f'[{i}]', x) for i, x in enumerate(tree)]
-    return []
-
-
 def _rebuild(template: Any, leaves, device=None) -> Any:
     """``template`` with its leaves taken in order from the iterator
     ``leaves`` (numpy arrays): a tensor leaf becomes a tensor on ``device``
     (the template's own by default), a numpy leaf stays numpy."""
-    if isinstance(template, torch.Tensor):
-        return torch.from_numpy(next(leaves)).to(
-            template.device if device is None else device)
-    if isinstance(template, np.ndarray):
-        return next(leaves)
-    if isinstance(template, dict):
-        built = {k: _rebuild(template[k], leaves, device)
-                 for k in sorted(template)}
-        return {k: built[k] for k in template}
-    if dataclasses.is_dataclass(template) and not isinstance(template, type):
-        return dataclasses.replace(template, **{
-            f.name: _rebuild(getattr(template, f.name), leaves, device)
-            for f in dataclasses.fields(template)})
-    if isinstance(template, (tuple, list)):
-        vals = [_rebuild(x, leaves, device) for x in template]
-        if hasattr(template, '_fields'):     # a NamedTuple
-            return type(template)(*vals)
-        return type(template)(vals)
-    return template
+    def load(old):
+        if isinstance(old, np.ndarray):
+            return next(leaves)
+        t = torch.from_numpy(next(leaves))
+        if old.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            # saved as its bits (``_host_copy``)
+            t = t.view(torch.bfloat16)
+        return t.to(old.device if device is None else device)
+    return rebuild(template, _is_leaf, load)
 
 
 def _host_copy(x) -> np.ndarray:
     """A numpy copy that shares no memory with ``x`` (a CPU tensor's
-    ``.numpy()`` would)."""
+    ``.numpy()`` would).  numpy has no bfloat16: such a tensor is copied as
+    its bits, int16, and ``_rebuild`` views them as bfloat16 again."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to('cpu', copy=True).numpy()
+        x = x.detach().to('cpu', copy=True)
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        return x.numpy()
     return np.array(x, copy=True)
 
 

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..runtime.sharding import padded_heads
 
@@ -27,6 +28,18 @@ NEG_INF = -1e30      # the masked-score fill of the JAX package
 # ---------------------------------------------------------------------------
 # Basics
 # ---------------------------------------------------------------------------
+
+
+def remat(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, while grad is enabled, its activations
+    are recomputed in the backward pass instead of kept (the JAX package's
+    ``jax.checkpoint``).  The recompute replays the same operations on the
+    same inputs, so it gives the same values and, in the MoE, the same
+    routing.  ``fn`` draws no random numbers, so no RNG state is saved."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -326,3 +339,43 @@ def logits(p, x: torch.Tensor, cfg) -> torch.Tensor:
         lg = torch.where(torch.arange(vp, device=lg.device) < cfg.vocab,
                          lg, NEG_INF)
     return lg
+
+
+def _ce_chunk(h_c, w, l_c, vocab: int):
+    """The summed negative log-likelihood [] and the count of labels >= 0
+    of one chunk: h_c [B, c, D] normed states, w [D, Vp], l_c [B, c]."""
+    lg = (h_c @ w).float()                                   # [B, c, Vp]
+    vp = lg.shape[-1]
+    if vp != vocab:   # mask the vocab padding out of the partition function
+        lg = torch.where(torch.arange(vp, device=lg.device) < vocab, lg,
+                         NEG_INF)
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, torch.clamp(l_c, min=0)[..., None].long())[
+        ..., 0]
+    valid = l_c >= 0
+    nll = torch.where(valid, lse - tgt, 0.0)
+    return nll.sum(), valid.sum(dtype=torch.int32)
+
+
+def chunked_ce_loss(p, x: torch.Tensor, labels: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Sequence-chunked cross entropy, the mean over labels >= 0 (-1 is
+    ignored).  x [B, S, D] final hidden states, labels [B, S].
+
+    The chunk is ``min(cfg.loss_chunk, S)``, shrunk until it divides S.
+    Each chunk's float32 logits [B, c, V] are recomputed in the backward
+    pass (``remat``), so the whole [B, S, V] never exists at once."""
+    b, s, d = x.shape
+    c = min(cfg.loss_chunk, s)
+    while s % c:
+        c -= 1
+    w = _unembed_matrix(p)
+    h = rmsnorm(x, p['final_norm'], cfg.norm_eps)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(s // c):
+        nll, n = remat(True, _ce_chunk, h[:, i * c:(i + 1) * c], w,
+                       labels[:, i * c:(i + 1) * c], cfg.vocab)
+        nll_sum = nll_sum + nll
+        count = count + n
+    return nll_sum / torch.clamp(count, min=1)

@@ -157,23 +157,30 @@ class MoE(LM):
         return x + L.mlp(p.mlp, L.rmsnorm(x, p.ln4, self.cfg.norm_eps),
                          self.cfg)
 
-    def forward(self, tokens: torch.Tensor):
-        """tokens [B, S] -> (final hidden [B, S, D], mean drop fraction)."""
+    def _super_block(self, p, x, pos):
+        """One super-block: (the dense layer, then) attention and the MoE
+        FFN.  Returns (x, drop fraction)."""
         cfg = self.cfg
+
+        def attn(pa, h):
+            return L.attention_train(pa, h, cfg, pos)
+
+        if cfg.moe_every > 1:
+            x = self._dense(p, x, attn)
+        x = x + attn(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps))
+        y, drop = moe_ffn(p.moe, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+        return x + y, drop
+
+    def forward(self, tokens: torch.Tensor):
+        """tokens [B, S] -> (final hidden [B, S, D], mean drop fraction);
+        with ``cfg.remat`` each super-block's activations are recomputed in
+        the backward pass (its routing too, to the same choices)."""
         b, s = tokens.shape
         x = L.embed(self.tok, tokens)
         pos = positions(b, s, tokens.device)
-
-        def attn(p, h):
-            return L.attention_train(p, h, cfg, pos)
-
         drops = []
         for p in self.blocks:
-            if cfg.moe_every > 1:
-                x = self._dense(p, x, attn)
-            x = x + attn(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps))
-            y, drop = moe_ffn(p.moe, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
-            x = x + y
+            x, drop = L.remat(self.cfg.remat, self._super_block, p, x, pos)
             drops.append(drop)
         return x, torch.stack(drops).mean()
 
@@ -198,6 +205,14 @@ class MoE(LM):
             y, _ = moe_ffn(p.moe, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
             x = x + y
         return self.logits(x)[:, 0], caches
+
+
+def train_loss(params: MoE, batch: dict, cfg, ctx) -> torch.Tensor:
+    """The mean next-token cross entropy of ``batch``; the drop fraction is
+    not part of the loss, as in the JAX package.  ``cfg`` is the model's
+    own."""
+    h, _ = params(batch['tokens'])
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> MoE:

@@ -1,19 +1,23 @@
 """Architecture registry: one interface over the model families, for
-serving.
+training and serving.
 
 Per config: ``init_params`` (random weights from a seeded generator),
-``make_ctx`` / ``tp_of``, and the serving entry points ``make_prefill``,
-``make_decode_step`` and ``init_decode_state``, with the JAX package's
-branch for each family: ``dense`` and ``vlm`` (chameleon's backbone is
-dense with qk-norm), ``moe``, ``encdec`` (whisper), ``ssm`` (xlstm) and
-``hybrid`` (zamba2).
+``make_ctx`` / ``tp_of``, the train step ``make_train_step`` (the family's
+``train_loss``, its gradients by autograd, and ``optim.adam.step``), and
+the serving entry points ``make_prefill``, ``make_decode_step`` and
+``init_decode_state``, with the JAX package's branch for each family:
+``dense`` and ``vlm`` (chameleon's backbone is dense with qk-norm),
+``moe``, ``encdec`` (whisper), ``ssm`` (xlstm) and ``hybrid`` (zamba2).
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..optim import adam
 from ..runtime.sharding import ShardCtx
 from . import moe, transformer, whisper, xlstm, zamba2
 
@@ -47,6 +51,37 @@ def tp_of(mesh, cfg: ModelConfig) -> int:
         raise NotImplementedError('the port has no device mesh yet '
                                   '(ROADMAP queue 1, item 3c)')
     return 1
+
+
+def make_train_step(cfg: ModelConfig, ctx: ShardCtx,
+                    adam_cfg: Optional[adam.AdamConfig] = None, *,
+                    schedule: Optional[Callable] = None):
+    """Returns ``(train_step, acfg)``; ``acfg`` defaults to AdamW with
+    moments in ``cfg.opt_state_dtype``.
+
+    ``train_step(model, opt_state, batch)`` takes the gradients of the
+    family's ``train_loss`` over ``list(model.parameters())`` and runs
+    ``adam.step`` on them, in place; it returns ``(model, opt_state,
+    {'loss', 'grad_norm'})``, both device tensors (no host sync).  The
+    model's own config (``model.cfg``) decides its forward, its remat and
+    its loss; ``cfg`` chooses the family and the default Adam config.
+    ``schedule`` maps ``opt_state.step``, read before the step's increment
+    as the JAX trainer reads it, to the learning-rate scale (1.0
+    without)."""
+    mod = module_for(cfg)
+    acfg = adam_cfg or adam.AdamConfig(
+        state_dtype=getattr(torch, cfg.opt_state_dtype))
+
+    def train_step(model, opt_state: adam.AdamState, batch: dict):
+        params = list(model.parameters())
+        loss = mod.train_loss(model, batch, model.cfg, ctx)
+        grads = torch.autograd.grad(loss, params)
+        lr_scale = 1.0 if schedule is None else schedule(opt_state.step)
+        _, opt_state, gnorm = adam.step(params, grads, opt_state, acfg,
+                                        lr_scale)
+        return model, opt_state, {'loss': loss.detach(), 'grad_norm': gnorm}
+
+    return train_step, acfg
 
 
 def make_prefill(cfg: ModelConfig, ctx: ShardCtx):

@@ -66,11 +66,13 @@ class Transformer(nn.Module):
                             device=tokens.device)[None].expand(b, s)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> final hidden [B, S, D]."""
+        """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
+        block's activations are recomputed in the backward pass."""
         x = L.embed(self.tok, tokens)
         positions = self._positions(tokens)
         for blk in self.blocks:
-            x = blk.train_block(x, self.cfg, positions)
+            x = L.remat(self.cfg.remat, blk.train_block, x, self.cfg,
+                        positions)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +102,13 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk.decode_block(x, self.cfg, (k_all[i], v_all[i]), pos)
         return self.logits(x)[:, 0], caches
+
+
+def train_loss(params: Transformer, batch: dict, cfg, ctx) -> torch.Tensor:
+    """The mean next-token cross entropy of ``batch`` (``tokens``,
+    ``labels``; -1 labels ignored).  ``cfg`` is the model's own."""
+    h = params(batch['tokens'])
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> Transformer:

@@ -78,6 +78,14 @@ class Whisper(LM):
         return self.logits(x)[:, 0], caches
 
 
+def train_loss(params: Whisper, batch: dict, cfg, ctx) -> torch.Tensor:
+    """The decoder's mean next-token cross entropy of ``batch``
+    (``tokens``, ``labels``, and the ``frames`` it attends to).  The
+    reference has no remat here.  ``cfg`` is the model's own."""
+    h = params.decode_train(batch['tokens'], params.encode(batch['frames']))
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
+
+
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> Whisper:
     dtype = getattr(torch, cfg.dtype)
 

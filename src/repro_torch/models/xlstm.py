@@ -165,18 +165,23 @@ class XLSTM(LM):
     super-block ``{'mlstm': [se-1 dicts], 'slstm': {...}}`` (or one mLSTM
     dict a layer where the depth does not group)."""
 
+    def _super_block(self, blk, x):
+        for p_m in blk.mlstm:
+            x = mlstm_block(p_m, x, self.cfg)
+        return slstm_block(blk.slstm, x, self.cfg)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> final hidden [B, S, D]."""
+        """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
+        super-block's activations are recomputed in the backward pass (as
+        in the JAX package, a depth that does not group runs without)."""
         cfg = self.cfg
         x = L.embed(self.tok, tokens)
         _, se = _super(cfg)
         for blk in self.blocks:
-            if not se:
+            if se:
+                x = L.remat(cfg.remat, self._super_block, blk, x)
+            else:
                 x = mlstm_block(blk, x, cfg)
-                continue
-            for p_m in blk.mlstm:
-                x = mlstm_block(p_m, x, cfg)
-            x = slstm_block(blk.slstm, x, cfg)
         return x
 
     @torch.no_grad()
@@ -199,6 +204,13 @@ class XLSTM(LM):
             x, (sh[i], sc[i]) = slstm_decode(blk.slstm, x, (sh[i], sc[i]),
                                              cfg)
         return self.logits(x)[:, 0], state
+
+
+def train_loss(params: XLSTM, batch: dict, cfg, ctx) -> torch.Tensor:
+    """The mean next-token cross entropy of ``batch``.  ``cfg`` is the
+    model's own."""
+    h = params(batch['tokens'])
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> XLSTM:

@@ -36,7 +36,9 @@ class Zamba2(LM):
                          self.cfg)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> final hidden [B, S, D]."""
+        """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
+        Mamba2 layer's activations are recomputed in the backward pass (the
+        shared attention block's are kept, as in the JAX package)."""
         cfg = self.cfg
         b, s = tokens.shape
         x = L.embed(self.tok, tokens)
@@ -45,7 +47,8 @@ class Zamba2(LM):
         p = self.shared
         for si, (lo, hi) in enumerate(_segments(cfg)):
             for l in range(lo, hi):
-                x = mamba2.mamba_block(self.mamba[l], x, cfg)
+                x = L.remat(cfg.remat, mamba2.mamba_block, self.mamba[l], x,
+                            cfg)
             if si < n_pts:
                 h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
                 x = self._shared_mlp(x + L.attention_train(p.attn, h, cfg,
@@ -75,6 +78,13 @@ class Zamba2(LM):
                     pos)
                 x = self._shared_mlp(x + y)
         return self.logits(x)[:, 0], state
+
+
+def train_loss(params: Zamba2, batch: dict, cfg, ctx) -> torch.Tensor:
+    """The mean next-token cross entropy of ``batch``.  ``cfg`` is the
+    model's own."""
+    h = params(batch['tokens'])
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> Zamba2:

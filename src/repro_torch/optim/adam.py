@@ -3,13 +3,21 @@
   * optional bf16 first/second moments (``state_dtype``);
   * global-norm gradient clipping;
   * decoupled weight decay;
-  * bias correction inside the update: ``(m / c1) / (sqrt(v / c2) + eps)``.
+  * bias correction inside the update: ``(m / c1) / (sqrt(v / c2) + eps)``;
+  * a learning-rate scale a step (``lr_scale``, a float or a device
+    tensor from ``optim.schedule``), as the LM trainer passes it.
 
 ``torch.optim.Adam`` is not used: it places ``eps`` after the bias
 correction of ``v`` alone, and its defaults (``b2`` 0.999, no clipping)
 differ.  A scene's parameters go in ``FIELDS`` order
-(``[getattr(scene, f) for f in FIELDS]``); the moments follow the same
-order.
+(``[getattr(scene, f) for f in FIELDS]``), a model's in
+``model.parameters()`` order; the moments follow the same order.
+
+``step`` updates the parameters and the moments in place, one tensor at a
+time, and applies the clipping scale to each gradient as it goes: a step
+holds no second copy of the gradients or the moments, which a model of
+3.7 B parameters with float32 moments would not fit beside on an 80 GB
+card.
 """
 from __future__ import annotations
 
@@ -49,23 +57,18 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
-    """Returns (grads scaled to global norm at most ``max_norm``, the norm
-    before clipping)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tuple(g * scale.to(g.dtype) for g in grads), norm
-
-
 @torch.no_grad()
 def step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-         state: AdamState, cfg: AdamConfig):
-    """One AdamW update.  The parameters are updated in place; returns
-    (params, new state, pre-clip global gradient norm)."""
+         state: AdamState, cfg: AdamConfig,
+         lr_scale: float | torch.Tensor = 1.0):
+    """One AdamW update at ``cfg.lr * lr_scale``.  The parameters and the
+    moments of ``state`` are updated in place; returns (params, the state
+    with its step advanced, pre-clip global gradient norm)."""
+    gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
 
     count = state.step + 1
     b1, b2 = cfg.b1, cfg.b2
@@ -74,16 +77,18 @@ def step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                                       device=cf.device), cf)
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                       device=cf.device), cf)
+    lr = cfg.lr * lr_scale
 
-    mu, nu = [], []
     for p, g, m, v in zip(params, grads, state.mu, state.nu):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         g32 = g.float()
         m32 = b1 * m.float() + (1 - b1) * g32
         v32 = b2 * v.float() + (1 - b2) * g32 * g32
         update = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
         if cfg.weight_decay:
             update = update + cfg.weight_decay * p.float()
-        p.copy_((p.float() - cfg.lr * update).to(p.dtype))
-        mu.append(m32.to(cfg.state_dtype))
-        nu.append(v32.to(cfg.state_dtype))
-    return params, AdamState(count, tuple(mu), tuple(nu)), gnorm
+        p.copy_((p.float() - lr * update).to(p.dtype))
+        m.copy_(m32)
+        v.copy_(v32)
+    return params, AdamState(count, state.mu, state.nu), gnorm
