@@ -195,7 +195,24 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    kernel time, launches and device-busy share of one step from
    ``torch.profiler`` tracing the device alone.  No hand-written kernel
    lies on this path;
-13. print the total wall time, the ``{"kernels": [...]}`` line, then the
+13. mesh (``mesh_phase``): a one-rank NCCL process group and a (data 1,
+    model 1) ``DeviceMesh`` on the card: (a) granite-moe-1b-a400m at its
+    published widths cut to 2 layers, bfloat16, one train step of 8 x 256
+    tokens with the mesh (the expert-parallel MoE body, its all_to_all
+    and gathers one-rank NCCL calls) and one without, from the same draw:
+    each MoE layer's drop fraction equal exactly, the loss within 1e-5
+    relative and the grad norm within 1e-3, then 3 timed steps of each
+    and one profiled; (b) ``psum_compressed`` of (a)'s gradients over
+    ``data``: each leaf equal to ``decompress(compress(g))``; (d) (a)'s
+    train state placed with ``reshard_tree`` on a mesh rebuilt from
+    ``plan_remesh(1, 0, model=1)``: every value back bit for bit; (c) the
+    ``render_1080p`` dry-run cell's frame (1,048,576 Gaussians of
+    ``structured_scene`` at 1920x1088, capacity 512, sorted) through
+    ``render_dist._serve_frame`` on the mesh equal to the mesh-free frame
+    bit for bit (colors and n_significant), each timed 3 times in turns
+    with the plain walk's share; (e) GPipe needs two ranks: a line says
+    so.  No hand-written kernel lies on this path;
+14. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -365,6 +382,16 @@ TRAIN_LEAF_L2 = 3e-2
 TRAIN_REMAT_ARCHS = ('smollm-360m',)
 TRAIN_TIMED_STEPS = 3
 ADAM_BYTES = 22
+# the mesh phase on a one-rank (data 1, model 1) mesh of this card: (a)
+# MESH_ARCH at its published widths and MESH_DEPTH layers (lm_train_phase
+# (c)'s depth) trains one step of TRAIN_BATCH x TRAIN_SEQ with the mesh
+# (the expert-parallel MoE body, its all_to_all a one-rank NCCL call) and
+# one without, from the same draw, then MESH_TIMED_STEPS more each, timed;
+# (c) the render dry-run cell MESH_FRAME's frame, sharded and mesh-free,
+# MESH_FRAME_REPS timings each (MESH_FRAME_SIZE, where set, overrides its
+# (Gaussians, width, height, capacity) for a CPU rehearsal)
+MESH_ARCH, MESH_DEPTH, MESH_TIMED_STEPS = 'granite-moe-1b-a400m', 2, 3
+MESH_FRAME, MESH_FRAME_REPS, MESH_FRAME_SIZE = 'render_1080p', 3, None
 DEVICE = 'cuda'
 
 
@@ -3678,6 +3705,241 @@ def lm_train_phase(pkg, arch: str, cpu_depth: int | None) -> dict:
     return out
 
 
+def mesh_train(pkg, mesh) -> tuple:
+    """(a) one train step of MESH_ARCH with ``mesh`` in its context and one
+    without, from the same draw on the same batch: the expert-parallel
+    calls, each MoE layer's drop fraction (equal exactly: at one rank the
+    per-rank capacity is the global one), the loss and the grad norm
+    (within lm_train_phase (c)'s bounds); then MESH_TIMED_STEPS more steps
+    each, timed, and one profiled (kernel time and launches).  Returns
+    (the printed numbers, the mesh run's model, optimizer state and
+    step-0 gradients)."""
+    import torch
+    registry = pkg.registry
+    base = pkg.configs.get_config(MESH_ARCH)
+    cfg = (dataclasses.replace(base, n_layers=MESH_DEPTH) if LM_FULL
+           else base.reduced())
+    batch = lm_train_batch(pkg, cfg, 5, TRAIN_BATCH, TRAIN_SEQ, DEVICE)
+    runs, keep = {}, None
+    for label, m in (('mesh', mesh), ('no_mesh', None)):
+        model = registry.init_params(0, cfg, device=DEVICE)
+        step_fn, acfg = registry.make_train_step(cfg,
+                                                 registry.make_ctx(m, cfg))
+        opt = pkg.adam.init(list(model.parameters()), acfg)
+        drops, ep = [], []
+
+        def record_drop(_, fn):
+            def moe_ffn(*a, **kw):
+                out = fn(*a, **kw)
+                drops.append(float(out[1]))
+                return out
+            return moe_ffn
+
+        def record_ep(_, fn):
+            def body(*a, **kw):
+                ep.append(tuple(a[1].shape))
+                return fn(*a, **kw)
+            return body
+
+        with adam_calls(pkg, keep_grads=True) as calls, \
+                patched([(pkg.moe, 'moe_ffn', 'moe_ffn')], record_drop), \
+                patched([(pkg.moe, '_moe_ffn_ep', 'ep')], record_ep):
+            _, opt, metrics = step_fn(model, opt, batch)
+            loss = float(metrics['loss'])
+        grads = calls[0]['grads']
+        held = {'opt': opt}
+
+        def step():
+            _, held['opt'], _ = step_fn(model, held['opt'], batch)
+
+        runs[label] = {'loss': loss, 'grad_norm': calls[0]['grad_norm'],
+                       'drops': drops, 'ep_calls': len(ep),
+                       'step_ms': time_ms(step, MESH_TIMED_STEPS),
+                       'device_busy': (lm_device_busy(step, 1)
+                                       if DEVICE == 'cuda' else None)}
+        if m is not None:
+            keep = (model, held['opt'], grads)
+        del model, held, calls, grads
+    got, want = runs['mesh'], runs['no_mesh']
+    out = {'arch': MESH_ARCH, 'n_layers': cfg.n_layers, 'dtype': cfg.dtype,
+           'tokens': [TRAIN_BATCH, TRAIN_SEQ], **runs,
+           'loss_rel': abs(got['loss'] - want['loss']) / abs(want['loss']),
+           'grad_norm_rel': abs(got['grad_norm'] - want['grad_norm'])
+           / want['grad_norm']}
+    print('mesh (a) expert-parallel train step on (data 1, model 1) vs no '
+          f'mesh (step_ms: {"CUDA events" if DEVICE == "cuda" else "host"}'
+          f', median of {MESH_TIMED_STEPS} after the checked step and a '
+          'warm-up): '
+          + json.dumps(out), flush=True)
+    # every MoE layer's forward takes the EP body (remat's recompute may
+    # enter it again)
+    n_moe = cfg.n_layers // cfg.moe_every
+    if got['ep_calls'] < n_moe or want['ep_calls'] != 0:
+        fail(f'mesh (a): expert-parallel calls {got["ep_calls"]} with the '
+             f'mesh (want {n_moe} or more), {want["ep_calls"]} without '
+             '(want 0)')
+    if got['drops'] != want['drops'] or len(got['drops']) != n_moe:
+        fail(f'mesh (a): drops differ: {got["drops"]} vs {want["drops"]}')
+    if not (out['loss_rel'] <= TRAIN_LOSS_REL
+            and out['grad_norm_rel'] <= TRAIN_NORM_REL
+            and math.isfinite(got['loss'])):
+        fail(f'mesh (a): the mesh step differs: {out}')
+    return out, keep
+
+
+def mesh_psum(pkg, mesh, grads) -> dict:
+    """(b) ``psum_compressed`` of (a)'s gradients over ``data``: at one
+    rank each leaf is ``decompress(compress(g))`` exactly."""
+    import torch
+    comp = pkg.compression
+    t0 = time.perf_counter()
+    red, _ = comp.psum_compressed(list(grads), None, mesh.get_group('data'))
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    bad = [i for i, (g, r) in enumerate(zip(grads, red))
+           if not torch.equal(r, comp.decompress(comp.compress(g)[0]))]
+    out = {'leaves': len(red), 'elements': sum(g.numel() for g in grads),
+           'wall_ms': wall, 'unequal_leaves': bad}
+    print('mesh (b) psum_compressed over data (first call, host clock): '
+          + json.dumps(out), flush=True)
+    if bad:
+        fail(f'mesh (b): psum_compressed differs from decompress(compress) '
+             f'on leaves {bad}')
+    return out
+
+
+def mesh_frame(pkg, mesh) -> dict:
+    """(c) the dry-run cell's frame on the mesh and without it: colors and
+    n_significant bit for bit; then MESH_FRAME_REPS frames of each, in
+    turns, timed by the host clock around synchronised work, the plain
+    walk (``rasterize_tiles``) timed inside each frame."""
+    import torch
+    rd = pkg.render_dist
+    n, w, h, cap = MESH_FRAME_SIZE or rd.RENDER_SHAPE_TABLE[MESH_FRAME]
+    c = pkg.CONFIG
+    lcfg = pkg.lp.LuminaConfig(capacity=cap, window=c.window, margin=c.margin,
+                               k_record=c.k_record, sort_method='sorted')
+    scene = pkg.structured_scene(SEED, n, device=DEVICE)
+    cam = pkg.orbit_trajectory(1, width=w, height_px=h, device=DEVICE)[0]
+    colors, nsig = rd._serve_frame(scene, cam, mesh, lcfg)
+    alone = rd._serve_frame(scene, cam, None, lcfg)
+    tiles = ((w + 15) // 16) * ((h + 15) // 16)
+    if tuple(colors.shape) != (tiles, 256, 3) or \
+            not bool(torch.isfinite(colors).all()) or int(nsig.sum()) <= 0:
+        fail(f'mesh (c): frame {tuple(colors.shape)}, finite '
+             f'{bool(torch.isfinite(colors).all())}, n_significant '
+             f'{int(nsig.sum())}')
+    if not (torch.equal(colors, alone[0]) and torch.equal(nsig, alone[1])):
+        fail('mesh (c): the sharded frame differs from the mesh-free frame')
+
+    def sync():
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+
+    walk_s = []
+
+    def timed(_, fn):
+        def walk(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            walk_s.append(time.perf_counter() - t)
+            return out
+        return walk
+
+    times = {'mesh': [], 'no_mesh': []}
+    walks = {'mesh': [], 'no_mesh': []}
+    with patched([(rd, 'rasterize_tiles', 'walk')], timed):
+        for _ in range(MESH_FRAME_REPS):
+            for label, m in (('mesh', mesh), ('no_mesh', None)):
+                sync()
+                t = time.perf_counter()
+                rd._serve_frame(scene, cam, m, lcfg)
+                sync()
+                times[label].append((time.perf_counter() - t) * 1e3)
+                walks[label].append(walk_s[-1] * 1e3)
+    _, _, flops = rd.build_dryrun_cell(c, mesh, MESH_FRAME)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    share = [wk / fr for wk, fr in zip(walks['mesh'], times['mesh'])]
+    out = {'cell': MESH_FRAME, 'gaussians': n, 'size': [w, h],
+           'capacity': cap, 'tiles': tiles,
+           'n_significant': int(nsig.sum()), 'frame_ms': med['mesh'],
+           'no_mesh_frame_ms': med['no_mesh'], 'frame_ms_all': times,
+           'plain_walk_ms': statistics.median(walks['mesh']),
+           'plain_walk_share': statistics.median(share),
+           'model_flops': flops}
+    print(f'mesh (c) sharded frame == mesh-free frame (host clock, '
+          f'synchronised; median of {MESH_FRAME_REPS} in turns): '
+          + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_elastic(pkg, cfg_model, opt) -> dict:
+    """(d) (a)'s train state placed on a mesh rebuilt from
+    ``plan_remesh(1, 0, model=1)`` with ``reshard_tree``: every value comes
+    back bit for bit."""
+    import torch
+    el, P = pkg.elastic, pkg.sharding.P
+    plan = el.plan_remesh(1, 0, model=1)
+    mesh = el.build_mesh(plan, device=DEVICE)
+    state = pkg.lm_train.train_state(cfg_model, opt)
+    pspecs = pkg.registry.param_specs(cfg_model.cfg, cfg_model, mesh)
+    ordered = tuple(pspecs[k] for k in state[0])
+    specs = (pspecs, opt._replace(step=P(), mu=ordered, nu=ordered))
+    t0 = time.perf_counter()
+    placed = el.reshard_tree(state, specs, mesh)
+
+    def is_t(x):
+        return isinstance(x, torch.Tensor)
+
+    got = [x.full_tensor() for x in pkg.tree.leaves(placed, is_t)]
+    want = pkg.tree.leaves(state, is_t)
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not torch.equal(g, w)]
+    out = {'plan': dataclasses.asdict(plan), 'leaves': len(want),
+           'bytes': sum(x.numel() * x.element_size() for x in want),
+           'wall_s': time.perf_counter() - t0, 'unequal_leaves': bad}
+    print('mesh (d) elastic reshard of the train state: ' + json.dumps(out),
+          flush=True)
+    if bad or len(got) != len(want):
+        fail(f'mesh (d): resharded values differ: {bad}')
+    return out
+
+
+def mesh_phase(pkg) -> dict:
+    """The device mesh on this card: a one-rank process group (NCCL; gloo
+    on the CPU) and a (data 1, model 1) mesh, then (a) expert-parallel
+    training, (b) ``psum_compressed``, (c) the sharded frame, (d) the
+    elastic round trip; GPipe needs two ranks (e)."""
+    import torch
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    dist.init_process_group('nccl' if DEVICE == 'cuda' else 'gloo', rank=0,
+                            world_size=1, store=dist.HashStore())
+    try:
+        mesh = pkg.mesh.make_test_mesh((1, 1), device=DEVICE)
+        out = {}
+        out['train'], (model, opt, grads) = mesh_train(pkg, mesh)
+        out['psum'] = mesh_psum(pkg, mesh, grads)
+        del grads
+        out['elastic'] = mesh_elastic(pkg, model, opt)
+        del model, opt
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+        out['frame'] = mesh_frame(pkg, mesh)
+        print('mesh (e) GPipe: its schedule runs 2 stages on 2 ranks over '
+              "'pod'; one card makes one rank, so it does not run here "
+              '(tests/test_torch_mesh_ops.py holds it on 4 CPU ranks)',
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'mesh phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -3713,6 +3975,12 @@ def load_package(src: pathlib.Path):
     import repro_torch.serve.faults as faults
     import repro_torch.serve.fleet as fleet
     import repro_torch.serve.streaming as streaming
+    import repro_torch.core.render_dist as render_dist
+    import repro_torch.launch.mesh as mesh
+    import repro_torch.optim.compression as compression
+    import repro_torch.runtime.elastic as elastic
+    import repro_torch.runtime.sharding as sharding
+    import repro_torch.tree as tree
     return types.SimpleNamespace(
         kernels=kernels, CONFIG=arch.CONFIG, lp=lp, psnr=metrics.psnr,
         ssim=metrics.ssim, finetune=finetune, adam=adam, hwmodel=hwmodel,
@@ -3723,7 +3991,9 @@ def load_package(src: pathlib.Path):
         streaming=streaming, fleet=fleet, straggler=straggler,
         lm_serve=lm_serve, registry=registry, tokens=tokens, moe=moe,
         configs=configs, lm_train=lm_train, flops=flops, layers=layers,
-        ShapeConfig=ShapeConfig)
+        ShapeConfig=ShapeConfig, render_dist=render_dist, mesh=mesh,
+        compression=compression, elastic=elastic, sharding=sharding,
+        tree=tree)
 
 
 def main() -> int:
@@ -3810,6 +4080,7 @@ def main() -> int:
         lm_train_phase(pkg, arch, cpu_depth)
     print(f'LM train phases took {time.perf_counter() - t0:.1f} s',
           flush=True)
+    mesh_phase(pkg)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

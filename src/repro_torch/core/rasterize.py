@@ -41,9 +41,11 @@ class RasterAux:
     transmittance: torch.Tensor  # [T, P] final Gamma
 
 
-def pixel_centers(tiles_x: int, num_tiles: int, device):
-    """Pixel-center coordinates of every tile: two [T, P] float32 tensors."""
-    t = torch.arange(num_tiles, dtype=torch.int32, device=device)
+def pixel_centers(tiles_x: int, num_tiles: int, device, first_tile: int = 0):
+    """Pixel-center coordinates of tiles ``first_tile`` .. ``first_tile +
+    num_tiles - 1``: two [T, P] float32 tensors."""
+    t = torch.arange(first_tile, first_tile + num_tiles, dtype=torch.int32,
+                     device=device)
     p = torch.arange(P, dtype=torch.int32, device=device)
     px = (t % tiles_x * TILE)[:, None] + (p % TILE)[None, :]
     py = (t // tiles_x * TILE)[:, None] + (p // TILE)[None, :]
@@ -122,8 +124,10 @@ def _dense_chunk(px, py, live, slots, start: int, mean2d, conic, color,
 
 def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
                     bg: float = 0.0, live=None, chunk: int = 64,
-                    early_exit: bool = True) -> tuple[torch.Tensor, RasterAux]:
-    """Integrate colors for all tiles.
+                    early_exit: bool = True, first_tile: int = 0
+                    ) -> tuple[torch.Tensor, RasterAux]:
+    """Integrate colors for all tiles (``feats`` holding the tiles from
+    ``first_tile`` on, a block of the grid, where it is not 0).
 
     ``live`` is anything broadcastable to [T, P] bool: dead pixels contribute
     nothing and count zero iterations.
@@ -147,7 +151,7 @@ def rasterize_tiles(feats: TileFeatures, tiles_x: int, *, k_record: int = 5,
     """
     num_tiles, k = feats.ids.shape
     dev = feats.ids.device
-    px, py = pixel_centers(tiles_x, num_tiles, dev)
+    px, py = pixel_centers(tiles_x, num_tiles, dev, first_tile)
     live_tp = torch.broadcast_to(
         torch.as_tensor(True if live is None else live, device=dev),
         (num_tiles, P))

@@ -1,15 +1,64 @@
-"""Device placement for the serving fleet.
+"""Device meshes over ``torch.distributed``, and device placement for the
+serving fleet.
 
-The JAX package's mesh builders (``make_production_mesh``,
-``make_test_mesh``, ``make_serve_mesh``) build XLA meshes for the LM
-substrate and have no caller in the port yet; only ``serve_devices``, the
-fleet's per-worker placement, is here.
+The mesh builders are functions, never module-level constants, so
+importing this module touches no process group.  Each builds a
+``DeviceMesh`` with ``init_device_mesh`` on the process group that the
+caller initialised (``torch.distributed.init_process_group``: NCCL on the
+cards, gloo on the CPU), one rank per device, and raises ``RuntimeError``
+when the world is smaller than the mesh.  ``device`` is resolved as every
+entry point resolves it: the card unless the caller asks for the CPU.
+
+Production target of the JAX package: a pod of 16 x 16 = 256 devices
+``(data, model)``; multi-pod adds a leading ``pod`` axis (2 x 16 x 16).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..device import resolve_device
+from ..runtime.sharding import DEVICES_AXIS
+
+
+def _mesh(shape: tuple, axes: tuple, device, hint: str):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(
+            f'need {n} ranks for the {hint} mesh {dict(zip(axes, shape))}, '
+            f'have {have}: initialise a process group of {n} ranks first '
+            f'(torchrun --nproc-per-node {n}, or gloo on the CPU)')
+    if have > n:
+        raise RuntimeError(f'the {hint} mesh takes all {have} ranks of the '
+                           f'world, not {n}: use elastic.build_mesh for a '
+                           'mesh over fewer')
+    dev = resolve_device(device)
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')
+    return _mesh(shape, axes, device, 'production')
+
+
+def make_test_mesh(shape=(2, 2), axes=('data', 'model'), device=None):
+    """Small mesh for tests (4 ranks by default)."""
+    return _mesh(tuple(shape), tuple(axes), device, 'test')
+
+
+def make_serve_mesh(num_devices: int | None = None, device=None):
+    """1-D ``devices`` mesh for the sharded serving fleet, one rank per
+    scene-block worker (all ranks of the world by default)."""
+    import torch.distributed as dist
+    n = num_devices
+    if n is None:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+    return _mesh((n,), (DEVICES_AXIS,), device, 'serving')
 
 
 def serve_devices(num_workers: int, device=None) -> list[torch.device]:

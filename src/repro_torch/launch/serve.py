@@ -63,18 +63,22 @@ class Server:
     Runs on the card unless ``device`` asks for the CPU; the weights are
     random from a generator seeded 0 on that device (``params`` may be
     replaced before serving).  ``full`` keeps the config's published widths,
-    else it is ``reduced()``.
+    else it is ``reduced()``.  On a device ``mesh`` (``launch.mesh``) the
+    heads are padded to its ``model`` size and the decode step runs on this
+    rank with the mesh in its context; a one-token step is not divisible
+    by ``model`` (above 1), so the MoE FFN decodes on its local path, as
+    in the JAX package.
     """
 
     def __init__(self, arch: str, *, slots: int = 4, max_seq: int = 512,
-                 full: bool = False, device=None):
+                 full: bool = False, mesh=None, device=None):
         cfg = get_config(arch)
         if not full:
             cfg = cfg.reduced()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.ctx = registry.make_ctx(None, cfg)
-        tp = registry.tp_of(None, cfg)
+        self.ctx = registry.make_ctx(mesh, cfg)
+        tp = registry.tp_of(mesh, cfg)
         self.params = registry.init_params(0, cfg, tp, device=self.device)
         self.slots = slots
         self.max_seq = max_seq

@@ -6,24 +6,33 @@ package's ``launch.train``.
   checkpoint manager (async, keep-K, auto-resume) -> straggler detector.
 
 Runs on the card unless ``device`` asks for the CPU; ``full`` keeps the
-config's published widths and depth, else it is ``reduced()``.
+config's published widths and depth, else it is ``reduced()``.  On a
+device ``mesh`` (``launch.mesh``; every rank runs the same program) the
+heads are padded to the mesh's ``model`` size and the MoE FFN runs
+expert-parallel where the mesh divides it (``models.moe``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --steps 50 --batch 8 --seq 256 --ckpt-dir build/ckpt --full
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch smollm-360m --steps 8 --batch 2 --seq 64
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --device cpu --mesh 2,2 \\
+        --arch granite-moe-1b-a400m --steps 3 --batch 4 --seq 64
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..configs import get_config
 from ..data.tokens import TokenStream
 from ..device import resolve_device
+from .mesh import make_test_mesh
 from ..models import registry
 from ..optim import adam, schedule
 from ..runtime.straggler import StragglerDetector
@@ -44,7 +53,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
     Returns (model, optimizer state, the loss of every step run).
 
     With ``ckpt_dir`` it resumes from the newest checkpoint there and saves
-    every ``ckpt_every`` steps and at the end.  The learning-rate scale
+    every ``ckpt_every`` steps and at the end (on a mesh every rank holds
+    the same state, and rank 0 writes it).  The learning-rate scale
     depends only on (step, ``warmup``, ``steps``): a resumed run sees the
     scales that the interrupted one would have."""
     cfg = get_config(arch)
@@ -68,6 +78,7 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
     stream = TokenStream(seed=seed, global_batch=batch, seq=seq,
                          vocab=cfg.vocab, device=dev)
     mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+    writer = mesh is None or dist.get_rank() == 0
     start = 0
     if mgr is not None:
         restored = mgr.restore_latest(train_state(model, opt_state))
@@ -95,10 +106,11 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
             print_fn(f'step {step:5d}  loss {loss:.4f}  '
                      f'gnorm {float(metrics["grad_norm"]):.3f}  '
                      f'{dt * 1e3:.0f}ms')
-        if mgr is not None and ckpt_every and (step + 1) % ckpt_every == 0:
+        if writer and mgr is not None and ckpt_every and \
+                (step + 1) % ckpt_every == 0:
             mgr.save(train_state(model, opt_state), step=step + 1,
                      extra={'stream': stream.state_dict()})
-    if mgr is not None:
+    if writer and mgr is not None:
         mgr.save(train_state(model, opt_state), step=steps,
                  extra={'stream': stream.state_dict()})
         mgr.wait()
@@ -130,12 +142,38 @@ def main(argv=None):
     ap.add_argument('--device', default=None,
                     help="torch device (default: the card; 'cpu' for the "
                          'plain PyTorch run)')
+    ap.add_argument('--mesh', default='',
+                    help="'DATA,MODEL': train on a (data, model) mesh of "
+                         "the ranks torchrun launched (gloo on the CPU, "
+                         'NCCL on the cards)')
     args = ap.parse_args(argv)
-    _, _, history = train(
-        args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-        lr=args.lr, warmup=args.warmup, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        seed=args.seed, full=args.full, device=args.device)
-    print(f'final loss {history[-1]:.4f} (from {history[0]:.4f})')
+    mesh, say = None, print
+    if args.mesh:
+        mesh = launch_mesh(tuple(int(n) for n in args.mesh.split(',')),
+                           args.device)
+        if dist.get_rank():
+            say = lambda *a, **k: None      # noqa: E731 -- rank 0 prints
+    try:
+        _, _, history = train(
+            args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+            lr=args.lr, warmup=args.warmup, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every, seed=args.seed, full=args.full,
+            mesh=mesh, print_fn=say, device=args.device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    say(f'final loss {history[-1]:.4f} (from {history[0]:.4f})')
+
+
+def launch_mesh(shape: tuple, device=None):
+    """The (data, model) mesh of a ``torchrun`` launch: the process group
+    from its environment (NCCL with each rank on its local card, gloo on
+    the CPU), then ``launch.mesh.make_test_mesh``."""
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
+    dist.init_process_group('nccl' if dev.type == 'cuda' else 'gloo')
+    return make_test_mesh(shape, device=device)
 
 
 if __name__ == '__main__':

@@ -71,8 +71,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def normal(gen: torch.Generator, shape, dtype,
            scale: float = 0.02) -> torch.Tensor:
     """``scale`` times a standard normal draw, made in ``dtype`` on
-    ``gen``'s device (no float32 copy of a bfloat16 tensor is held)."""
-    return torch.randn(shape, generator=gen, dtype=dtype,
+    ``gen``'s device (no float32 copy of a bfloat16 tensor is held); on
+    the ``meta`` device, a tensor with no values."""
+    meta = gen.device.type == 'meta'     # shapes only (abstract_params)
+    return torch.randn(shape, generator=None if meta else gen, dtype=dtype,
                        device=gen.device).mul_(scale)
 
 

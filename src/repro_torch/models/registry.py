@@ -1,24 +1,29 @@
 """Architecture registry: one interface over the model families, for
 training and serving.
 
-Per config: ``init_params`` (random weights from a seeded generator),
-``make_ctx`` / ``tp_of``, the train step ``make_train_step`` (the family's
-``train_loss``, its gradients by autograd, and ``optim.adam.step``), and
-the serving entry points ``make_prefill``, ``make_decode_step`` and
-``init_decode_state``, with the JAX package's branch for each family:
-``dense`` and ``vlm`` (chameleon's backbone is dense with qk-norm),
-``moe``, ``encdec`` (whisper), ``ssm`` (xlstm) and ``hybrid`` (zamba2).
+Per config: ``init_params`` (random weights from a seeded generator) and
+``abstract_params`` (the same tree on the ``meta`` device, no values),
+``make_ctx`` / ``tp_of`` for a device mesh, the train step
+``make_train_step`` (the family's ``train_loss``, its gradients by
+autograd, and ``optim.adam.step``), the serving entry points
+``make_prefill``, ``make_decode_step`` and ``init_decode_state``, with the
+JAX package's branch for each family: ``dense`` and ``vlm`` (chameleon's
+backbone is dense with qk-norm), ``moe``, ``encdec`` (whisper), ``ssm``
+(xlstm) and ``hybrid`` (zamba2); and the recipe's partition specs:
+``param_specs`` (by ``named_parameters`` name), ``batch_shardings`` and
+``decode_state_specs``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..optim import adam
-from ..runtime.sharding import ShardCtx
+from ..runtime.sharding import (P, ShardCtx, adaptive_spec, all_axes,
+                                axes_size, batch_axes, mesh_axes)
 from . import moe, transformer, whisper, xlstm, zamba2
 
 _FAMILY = {
@@ -42,15 +47,29 @@ def init_params(seed: int, cfg: ModelConfig, tp: int = 1, *, device=None):
     return module_for(cfg).init_params(gen, cfg, tp)
 
 
-def make_ctx(mesh, cfg: ModelConfig) -> ShardCtx:
-    return ShardCtx(recipe=cfg.recipe, tp=tp_of(mesh, cfg))
+class _MetaDraws:
+    """Stands for a generator on the ``meta`` device: ``layers.normal``
+    makes tensors of the right shape and dtype with no values."""
+
+    device = torch.device('meta')
+
+
+def abstract_params(cfg: ModelConfig, tp: int = 1):
+    """The model of ``init_params`` on the ``meta`` device: every shape and
+    dtype, no storage (maverick's ~400B parameters allocate nothing)."""
+    return module_for(cfg).init_params(_MetaDraws(), cfg, tp)
+
+
+def make_ctx(mesh, cfg: ModelConfig, *, long_context: bool = False
+             ) -> ShardCtx:
+    return ShardCtx(mesh=mesh, recipe=cfg.recipe, tp=tp_of(mesh, cfg),
+                    seq_shard_kv=long_context)
 
 
 def tp_of(mesh, cfg: ModelConfig) -> int:
-    if mesh is not None:
-        raise NotImplementedError('the port has no device mesh yet '
-                                  '(ROADMAP queue 1, item 3c)')
-    return 1
+    """The mesh's ``model`` size (1 without a mesh): every recipe pads q
+    heads to it."""
+    return mesh_axes(mesh).get('model', 1)
 
 
 def make_train_step(cfg: ModelConfig, ctx: ShardCtx,
@@ -100,7 +119,7 @@ def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
             h = params.decode_train(batch['tokens'],
                                     params.encode(batch['frames']))
         elif cfg.family == 'moe':
-            h, _ = params(batch['tokens'])
+            h, _ = params(batch['tokens'], ctx)
         else:
             h = params(batch['tokens'])
         return params.logits(h[:, -1:])[:, 0]
@@ -114,6 +133,11 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
             lg, caches = params.decode_step(token, state['self'],
                                             state['cross'], pos)
             return lg, dict(state, self=caches)
+        return step
+
+    if cfg.family == 'moe':
+        def step(params, token, state, pos: int):
+            return params.decode_step(token, state, pos, ctx)
         return step
 
     def step(params, token, state, pos: int):
@@ -138,3 +162,144 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     if cfg.family == 'hybrid':
         return zamba2.init_state(cfg, batch, max_seq, tp, device=dev)
     return module_for(cfg).init_kv_cache(cfg, batch, max_seq, tp, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Partition specs (recipe rules, by parameter name and rank)
+# ---------------------------------------------------------------------------
+
+_TP_LAST2 = {
+    'wq': ('data', 'model'), 'w_up': ('data', 'model'),
+    'w_gate': ('data', 'model'), 'w_in': ('data', 'model'),
+    'w_x': ('data', 'model'), 'w_h': ('data', 'model'),
+    'wk': ('data', None), 'wv': ('data', None), 'w_if': ('data', None),
+    'wo': ('model', 'data'), 'w_down': ('model', 'data'),
+    'w_out': ('model', 'data'),
+    # embed shards d_model, not vocab: a vocab-sharded table turns every
+    # token lookup into a full-table all-gather
+    'embed': (None, 'model'), 'unembed': (None, 'model'),
+    'router': (None, None), 'frontend_proj': (None, None),
+    'conv': (None, None),
+}
+_EXPERT_LAST3 = {
+    'w_up': ('model', 'data', None), 'w_gate': ('model', 'data', None),
+    'w_down': ('model', None, 'data'),
+}
+
+
+def _guard_divisible(spec: P, shape, mesh) -> P:
+    """Drop spec axes whose size does not divide the tensor dimension."""
+    if mesh is None:
+        return spec
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is None or i >= len(shape):
+            out.append(None)
+            continue
+        size = axes_size(mesh, entry)
+        out.append(entry if size and shape[i] % size == 0 else None)
+    return P(*out)
+
+
+def _leaf_spec(path: tuple, leaf, recipe: str, mesh=None) -> P:
+    """The spec of the parameter at ``path`` (its name's parts, layer
+    indices included).  A parameter of the port is one layer's slice of the
+    JAX package's stacked leaf, so its spec is that leaf's spec less the
+    leading stacked dims (always replicated)."""
+    # 'dp' replicates params; 'ssm' follows the 'tp' table
+    if recipe == 'dp':
+        return P()
+    if recipe == 'fsdp':
+        # ZeRO-3: every weight's largest trailing dim over every axis
+        return adaptive_spec(leaf.shape, mesh,
+                             [(-2, ('data', 'model')),
+                              (-1, ('data', 'model'))]) if mesh else P()
+    keys = [k for k in path if not str(k).isdigit()]
+    name = keys[-1] if keys else None
+    nd = len(leaf.shape)
+    in_moe, in_shared = 'moe' in keys, 'shared' in keys
+    if in_moe and not in_shared and name in _EXPERT_LAST3 and nd >= 3:
+        spec = P(*((None,) * (nd - 3) + _EXPERT_LAST3[name]))
+    elif name in _TP_LAST2 and nd >= 2:
+        spec = P(*((None,) * (nd - 2) + _TP_LAST2[name]))
+    else:
+        spec = P(*((None,) * nd))
+    return _guard_divisible(spec, leaf.shape, mesh)
+
+
+def param_specs(cfg: ModelConfig, params, mesh=None) -> dict:
+    """``{name: spec}`` for every parameter of ``params`` (a model, or a
+    dict of tensors by ``named_parameters`` name) under the config's
+    recipe."""
+    named = (params.named_parameters() if hasattr(params, 'named_parameters')
+             else params.items())
+    return {name: _leaf_spec(tuple(name.split('.')), leaf, cfg.recipe, mesh)
+            for name, leaf in named}
+
+
+def _is_shaped(x) -> bool:
+    return hasattr(x, 'shape') and not isinstance(x, (dict, list, tuple))
+
+
+def _map_with_path(fn, tree, path: tuple = ()):
+    """``tree`` (dicts, lists, tuples) with each shaped leaf ``x`` at the
+    keys ``path`` replaced by ``fn(path, x)``."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_shaped(tree):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def batch_shardings(cfg: ModelConfig, mesh, batch_tree) -> Any:
+    """Input-batch specs: batch dim over pod x data, sequence over 'model'
+    where divisible; recipe 'fsdp' shards batch over every axis."""
+    baxes = all_axes(mesh) if cfg.recipe == 'fsdp' else batch_axes(mesh)
+
+    def rule(_, leaf):
+        if mesh is None:
+            return P()
+        return adaptive_spec(leaf.shape, mesh, [(0, baxes), (1, 'model')])
+
+    return _map_with_path(rule, batch_tree)
+
+
+def decode_state_specs(cfg: ModelConfig, state_tree, mesh, *,
+                       long_context: bool):
+    """KV caches: batch over pod x data, sequence over 'model'; long
+    context (batch 1): sequence over 'data', heads (else head_dim) over
+    'model'.  Recurrent states: batch and the largest inner dim."""
+    baxes = batch_axes(mesh)
+
+    def rule(names, leaf):
+        if mesh is None:
+            return P()
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if cfg.family == 'ssm':
+            if 'mlstm' in names:   # [ns, se-1, B, H, dk, dv]
+                return adaptive_spec(shape, mesh,
+                                     [(2, baxes), (3, 'model'), (4, 'model')])
+            return adaptive_spec(shape, mesh,  # slstm [ns, B, di]
+                                 [(1, baxes), (2, 'model')])
+        if cfg.family == 'hybrid':
+            if 'kv_k' in names or 'kv_v' in names:   # [pts, B, T, H, hd]
+                if long_context:
+                    return adaptive_spec(shape, mesh,
+                                         [(2, 'data'), (3, 'model'),
+                                          (4, 'model')])
+                return adaptive_spec(shape, mesh, [(1, baxes), (2, 'model')])
+            # mamba states: ssm [L,B,h,ds,hd] / conv [L,B,K-1,C]
+            return adaptive_spec(shape, mesh,
+                                 [(1, baxes), (2, 'model'), (-1, 'model')])
+        # dense/moe/encdec stacked caches [L(,A),B,T,Hkv,hd]
+        lead = nd - 4
+        if long_context:
+            return adaptive_spec(shape, mesh,
+                                 [(lead + 1, 'data'), (lead + 2, 'model'),
+                                  (lead + 3, 'model')])
+        return adaptive_spec(shape, mesh,
+                             [(lead, baxes), (lead + 1, 'model')])
+
+    return _map_with_path(rule, state_tree)
