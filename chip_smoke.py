@@ -212,7 +212,26 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     bit for bit (colors and n_significant), each timed 3 times in turns
     with the plain walk's share; (e) GPipe needs two ranks: a line says
     so.  No hand-written kernel lies on this path;
-14. print the total wall time, the ``{"kernels": [...]}`` line, then the
+14. analysis (``analysis_phase``): the op counter (``analysis.op_count``)
+    and the roofline (``analysis.roofline``): (a) smollm-360m at its
+    published widths and depth, bfloat16, seeded 0: one
+    ``make_train_step`` call of 8 x 256 tokens counted on the card and
+    again on ``meta`` from ``abstract_params``, FLOPs, matmul FLOPs, bytes
+    and ops equal exactly; the count's FLOPs beside ``flops.model_flops``,
+    the step's median of 3 by CUDA events (outside the counter) beside
+    ``roofline.step_time``, the counter's peak on ``meta`` beside the
+    card's peak memory above the start; (b) the ``render_720p`` dry-run
+    cell's frame (1,048,576 Gaussians of ``structured_scene`` at 1280x720,
+    capacity 512, sorted) on the card, counted, with its walk's chunks
+    beside the ``meta`` walk's worst case (which must bound its count),
+    and timed beside the roofline; (c) ``python -m
+    repro_torch.launch.dryrun`` of smollm-360m at ``train_4k`` and of
+    ``render_1080p`` on the single mesh of 256 fake ranks, each in a
+    subprocess that must exit 0, with its roofline row and count time;
+    (d) a bfloat16 matmul of 8192 cubed and a 4 GiB device copy, the
+    TFLOP/s and TB/s they reach beside the roofline's datasheet peaks.
+    No hand-written kernel lies on these paths;
+15. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -233,11 +252,6 @@ import types
 import warnings
 
 HERE = pathlib.Path(__file__).resolve().parent
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-PEAK_BF16_PER_S = 989e12     # dense, on the tensor cores
 ULPS = 128
 # float operations per examined pixel-Gaussian pair (dx, dy, quadratic form,
 # power, exp counted as one, opacity product, clamp) and per contribution
@@ -392,7 +406,31 @@ ADAM_BYTES = 22
 # (Gaussians, width, height, capacity) for a CPU rehearsal)
 MESH_ARCH, MESH_DEPTH, MESH_TIMED_STEPS = 'granite-moe-1b-a400m', 2, 3
 MESH_FRAME, MESH_FRAME_REPS, MESH_FRAME_SIZE = 'render_1080p', 3, None
+# the analysis phase: (a) ANALYSIS_ARCH at its published widths and depth
+# trains one step of TRAIN_BATCH x TRAIN_SEQ under the op counter on the
+# card and once on ``meta``, then ANALYSIS_TIMED_STEPS timed steps; (b) the
+# ANALYSIS_FRAME dry-run cell's frame (ANALYSIS_FRAME_SIZE, where set,
+# overrides its (Gaussians, width, height, capacity) for a CPU rehearsal),
+# counted and timed ANALYSIS_TIMED_STEPS times; (c) the ANALYSIS_DRYRUNS
+# cells of ``launch.dryrun`` on the single mesh, each in a subprocess (a
+# fake group of 256 ranks cannot share this process with mesh_phase's NCCL
+# group) within ANALYSIS_DRYRUN_TIMEOUT_S; (d) a bfloat16 matmul of
+# ANALYSIS_MATMUL_N cubed and a device-to-device copy of
+# ANALYSIS_COPY_BYTES, ANALYSIS_PEAK_REPS times each
+ANALYSIS_ARCH, ANALYSIS_TIMED_STEPS = 'smollm-360m', 3
+ANALYSIS_FRAME, ANALYSIS_FRAME_SIZE = 'render_720p', None
+ANALYSIS_DRYRUNS = (('smollm-360m', 'train_4k'),
+                    ('lumina-3dgs', 'render_1080p'))
+ANALYSIS_DRYRUN_TIMEOUT_S = 300
+ANALYSIS_MATMUL_N, ANALYSIS_COPY_BYTES, ANALYSIS_PEAK_REPS = 8192, 4 << 30, 10
 DEVICE = 'cuda'
+
+
+def peaks():
+    """The card's datasheet peaks, ``analysis/roofline.py`` of the package
+    that ``load_package`` put on the path."""
+    import repro_torch.analysis.roofline as roofline
+    return roofline
 
 
 def serve_kernels(pkg) -> list:
@@ -521,7 +559,8 @@ def raster_bound(st, chunk: int, n_feature_chunks: int, lanes: int,
     nbytes = n_feature_chunks * chunk * FEATURE_BYTES + state_bytes
     ops = (OPS_EXAMINED * int(st.n_iter.sum())
            + OPS_CONTRIB * int(st.n_sig.sum()))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    rl = peaks()
+    t_bytes, t_ops = nbytes / rl.PEAK_BYTES_PER_S, ops / rl.PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -799,10 +838,10 @@ def rc_lookup_row(pkg, call, launches: int, label: str = 'rc_lookup') -> dict:
     # lookup only (hit, value, set, way) or of the fused probe (hit, value,
     # way; the copy of age read and written, clock read and written)
     lookup_bytes = ids.numel() * 4 + sets.numel() * w * (k + 3) * 4
-    lookup_bound = (lookup_bytes + hit.numel() * (1 + 12 + 4 + 4)) / PEAK_BYTES_PER_S * 1e3
+    lookup_bound = (lookup_bytes + hit.numel() * (1 + 12 + 4 + 4)) / peaks().PEAK_BYTES_PER_S * 1e3
     nbytes = (lookup_bytes + hit.numel() * (1 + 12 + 4) + age.numel() * 8
               + clock.numel() * 8 + live_bytes)
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = nbytes / peaks().PEAK_BYTES_PER_S * 1e3
     # the fused kernel alone: ids, each probed set's tags, the chosen way's
     # value, hit/value/way, each touched slot read and written, clock in and
     # out (the age copy is the wrapper's)
@@ -810,7 +849,7 @@ def rc_lookup_row(pkg, call, launches: int, label: str = 'rc_lookup') -> dict:
                     + torch.unique(slot).numel() * 12 + hit.numel() * (1 + 12 + 4)
                     + torch.unique(slot[touched]).numel() * 8 + clock.numel() * 8
                     + live_bytes)
-    kernel_bound_ms = kernel_bytes / PEAK_BYTES_PER_S * 1e3
+    kernel_bound_ms = kernel_bytes / peaks().PEAK_BYTES_PER_S * 1e3
     ms = statistics.median(times['probe_wrapper_ms'])
     kernel_ms = statistics.median(times['probe_kernel_ms'])
     print(f'kernel {label}: exact (fused against rc.lookup_all_groups_multi, '
@@ -3310,8 +3349,8 @@ def lm_serve_phase(pkg, arch: str, want_params: int, want_state_bytes: int,
         'ms': ms, 'host_enqueue_ms': statistics.median(host),
         'host_synced_ms': statistics.median(host_sync),
         'device_busy': busy,
-        'bytes': nbytes, 'bound_ms': nbytes / PEAK_BYTES_PER_S * 1e3,
-        'flop_bound_ms': flops / PEAK_BF16_PER_S * 1e3,
+        'bytes': nbytes, 'bound_ms': nbytes / peaks().PEAK_BYTES_PER_S * 1e3,
+        'flop_bound_ms': flops / peaks().PEAK_BF16_PER_S * 1e3,
         'slots': LM_SLOTS, 'pos': pos}
     print(f'lm serve {arch} (d) decode step (CUDA events, median of '
           f'{LM_TIMED_STEPS}; host clock without and with a sync): '
@@ -3515,8 +3554,8 @@ def lm_train_fit_and_time(pkg, model, rows: int, arch: str) -> dict:
         statistics.median(host_sync), 'device_busy': busy,
         'busy_share': busy['kernel_ms'] / med if busy else None,
         'tokens_per_s': rows * TRAIN_SEQ / (med / 1e3),
-        'model_flops': flops, 'flop_bound_ms': flops / PEAK_BF16_PER_S * 1e3,
-        'bytes': nbytes, 'byte_bound_ms': nbytes / PEAK_BYTES_PER_S * 1e3,
+        'model_flops': flops, 'flop_bound_ms': flops / peaks().PEAK_BF16_PER_S * 1e3,
+        'bytes': nbytes, 'byte_bound_ms': nbytes / peaks().PEAK_BYTES_PER_S * 1e3,
         'params': n_params, 'rows': rows, 'seq': TRAIN_SEQ,
         'remat': cfg.remat}
     out['step']['bound_ms'] = max(out['step']['flop_bound_ms'],
@@ -3940,6 +3979,258 @@ def mesh_phase(pkg) -> dict:
     return out
 
 
+def op_names(fn, *args) -> collections.Counter:
+    """The aten and c10d ops that one call of ``fn`` dispatches, by name
+    (to show where two counts part)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    names = collections.Counter()
+
+    class Names(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            names[str(func)] += 1
+            return func(*a, **(kw or {}))
+
+    with Names():
+        fn(*args)
+    return names
+
+
+def analysis_train(pkg) -> dict:
+    """(a) one train step of ANALYSIS_ARCH counted on the card and on
+    ``meta`` (FLOPs, matmul FLOPs, bytes and ops equal exactly), beside the
+    model FLOPs; the step's time beside the roofline's; the counter's peak
+    on ``meta`` beside the card's peak memory above the start."""
+    import torch
+    registry, oc = pkg.registry, pkg.op_count
+    cuda = DEVICE == 'cuda'
+    base = pkg.configs.get_config(ANALYSIS_ARCH)
+    cfg = base if LM_FULL else base.reduced()
+    step_fn, acfg = registry.make_train_step(cfg, registry.make_ctx(None, cfg))
+    batch = lm_train_batch(pkg, cfg, 1, TRAIN_BATCH, TRAIN_SEQ, DEVICE)
+    model = registry.init_params(SEED, cfg, device=DEVICE)
+    state = {'opt': pkg.adam.init(list(model.parameters()), acfg)}
+    held = memory_mark() if cuda else 0
+    card = oc.analyze(step_fn, model, state['opt'], batch)
+    card_peak = peak_since(held) if cuda else None
+    meta_model = registry.abstract_params(cfg)
+    meta_args = (meta_model, pkg.adam.init(list(meta_model.parameters()),
+                                           acfg),
+                 {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                         device='meta')
+                  for k, v in batch.items()})
+    meta = oc.analyze(step_fn, *meta_args)
+    keys = ('flops', 'dot_flops', 'bytes', 'n_ops')
+    if any(card[k] != meta[k] for k in keys):
+        got = op_names(step_fn, model, state['opt'], batch)
+        want = op_names(step_fn, *meta_args)
+        print(f'analysis (a) ops on {DEVICE} not on meta: {dict(got - want)}'
+              f'; on meta not on {DEVICE}: {dict(want - got)}', flush=True)
+        fail(f'analysis (a): the {DEVICE} count differs from the meta count: '
+             + json.dumps({k: [card[k], meta[k]] for k in keys}))
+
+    def step():
+        _, state['opt'], _ = step_fn(model, state['opt'], batch)
+
+    ms = time_ms(step, ANALYSIS_TIMED_STEPS)
+    shape = pkg.ShapeConfig('train', TRAIN_SEQ, TRAIN_BATCH, 'train')
+    mf = pkg.flops.model_flops(cfg, shape)
+    roof = pkg.roofline.from_counts(ANALYSIS_ARCH, 'train', DEVICE, 1, card,
+                                    model_flops=mf)
+    out = {'arch': ANALYSIS_ARCH, 'n_layers': cfg.n_layers,
+           'dtype': cfg.dtype, 'tokens': [TRAIN_BATCH, TRAIN_SEQ],
+           'counts': {k: card[k] for k in keys + ('collective_bytes',
+                                                   'kernels', 'peak_bytes')},
+           'model_flops': mf, 'flops_over_model_flops': card['flops'] / mf,
+           'step_ms': ms, 'roofline_step_ms': roof.step_time * 1e3,
+           'roofline_bound': roof.bottleneck,
+           't_compute_ms': roof.t_compute * 1e3,
+           't_memory_ms': roof.t_memory * 1e3,
+           'roofline_share': roof.step_time * 1e3 / ms,
+           'meta_peak_bytes': meta['peak_bytes'],
+           'card_peak_above_start_bytes': card_peak,
+           'peak_ratio': (meta['peak_bytes'] / card_peak
+                          if card_peak else None)}
+    print(f'analysis (a) {ANALYSIS_ARCH} train step counted on {DEVICE} == '
+          f'on meta (step_ms: {"CUDA events" if cuda else "host"}, median '
+          f'of {ANALYSIS_TIMED_STEPS} outside the counter): '
+          + json.dumps(out), flush=True)
+    del model, state
+    return out
+
+
+def analysis_frame(pkg) -> dict:
+    """(b) the ANALYSIS_FRAME cell's frame on this device: its walk's real
+    chunks against the ``meta`` branch's worst case (every tile through
+    capacity / chunk chunks), its op count on the device and on ``meta``,
+    and its time beside the roofline's."""
+    import torch
+    rd, oc, rast = pkg.render_dist, pkg.op_count, pkg.rasterize
+    n, w, h, cap = ANALYSIS_FRAME_SIZE or rd.RENDER_SHAPE_TABLE[ANALYSIS_FRAME]
+    c = pkg.CONFIG
+    lcfg = pkg.lp.LuminaConfig(capacity=cap, window=c.window, margin=c.margin,
+                               k_record=c.k_record, sort_method='sorted')
+    scene = pkg.structured_scene(SEED, n, device=DEVICE)
+    cam = pkg.orbit_trajectory(1, width=w, height_px=h, device=DEVICE)[0]
+    rows = []
+
+    def walked(_, fn):
+        def step(px, *a, **kw):
+            rows.append(px.shape[0])
+            return fn(px, *a, **kw)
+        return step
+
+    with patched([(rast, '_walk_step', 'walk')], walked):
+        card = oc.analyze(rd._serve_frame, scene, cam, None, lcfg)
+        walk_steps = len(rows)
+        row_positions = sum(rows)
+        rows.clear()
+        meta_cam = pkg.orbit_trajectory(1, width=w, height_px=h,
+                                        device='meta')[0]
+        meta = oc.analyze(rd._serve_frame, rd.abstract_scene(n), meta_cam,
+                          None, lcfg)
+        meta_steps = len(rows)
+    tiles = ((w + 15) // 16) * ((h + 15) // 16)
+    chunk = rast.rasterize_tiles.__kwdefaults__['chunk']
+    keys = ('flops', 'bytes', 'n_ops', 'peak_bytes')
+    shown = ('flops', 'dot_flops', 'bytes', 'n_ops', 'peak_bytes')
+    if walk_steps > meta_steps or meta_steps != cap or any(
+            card[k] > meta[k] for k in keys):
+        fail(f'analysis (b): the meta walk ({meta_steps} steps) does not '
+             f'bound the real one ({walk_steps}): '
+             + json.dumps({k: [card[k], meta[k]] for k in keys}))
+    ms = time_ms(lambda: rd._serve_frame(scene, cam, None, lcfg),
+                 ANALYSIS_TIMED_STEPS)
+    _, _, mf = rd.build_dryrun_cell(c, None, ANALYSIS_FRAME)
+    roof = pkg.roofline.from_counts('lumina-3dgs', ANALYSIS_FRAME, DEVICE, 1,
+                                    card, model_flops=mf)
+    out = {'cell': ANALYSIS_FRAME, 'gaussians': n, 'size': [w, h],
+           'capacity': cap, 'tiles': tiles,
+           'walk_chunks': walk_steps // chunk,
+           'meta_walk_chunks': meta_steps // chunk,
+           'walk_tile_chunks': row_positions // chunk,
+           'meta_walk_tile_chunks': tiles * (cap // chunk),
+           'counts': {k: card[k] for k in shown},
+           'meta_counts': {k: meta[k] for k in shown},
+           'frame_ms': ms, 'roofline_ms': roof.step_time * 1e3,
+           'roofline_bound': roof.bottleneck,
+           'roofline_share': roof.step_time * 1e3 / ms, 'model_flops': mf}
+    print(f'analysis (b) {ANALYSIS_FRAME} frame on {DEVICE} (frame_ms: '
+          f'{"CUDA events" if DEVICE == "cuda" else "host"}, median of '
+          f'{ANALYSIS_TIMED_STEPS}): ' + json.dumps(out), flush=True)
+    del scene
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def analysis_dryruns_start() -> list:
+    """(c) one ``launch.dryrun`` subprocess per cell of ANALYSIS_DRYRUNS,
+    started together: (cell, process, log path, start time)."""
+    import os
+    logs = HERE / 'build' / 'dryrun' / 'logs'
+    logs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(HERE / 'src'), OMP_NUM_THREADS='1')
+    procs = []
+    for arch, shape in ANALYSIS_DRYRUNS:
+        log = logs / f'{arch}__{shape}__single.log'
+        with open(log, 'w') as f:
+            p = subprocess.Popen(
+                [sys.executable, '-m', 'repro_torch.launch.dryrun', '--arch',
+                 arch, '--shape', shape, '--mesh', 'single'],
+                stdout=f, stderr=subprocess.STDOUT, cwd=HERE, env=env)
+        procs.append(((arch, shape), p, log, time.perf_counter()))
+    return procs
+
+
+def analysis_dryruns_finish(pkg, procs) -> list:
+    """(c) wait for each dry run: exit 0 within ANALYSIS_DRYRUN_TIMEOUT_S,
+    then print its roofline row and count time."""
+    out = []
+    for (arch, shape), p, log, t0 in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, ANALYSIS_DRYRUN_TIMEOUT_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f'analysis (c): the {arch} {shape} dry run took more than '
+                 f'{ANALYSIS_DRYRUN_TIMEOUT_S} s')
+        if rc != 0:
+            fail(f'analysis (c): the {arch} {shape} dry run exited {rc}: '
+                 + log.read_text()[-2000:])
+        rec = json.loads((HERE / 'build' / 'dryrun'
+                          / f'{arch}__{shape}__single.json').read_text())
+        row = {'cell': [arch, shape, 'single'], 'chips': rec['chips'],
+               'count_s': rec['count_s'], 'n_ops': rec['n_ops'],
+               'wall_s': time.perf_counter() - t0,
+               'memory_analysis': rec['memory_analysis'],
+               'cost_analysis': rec['cost_analysis'],
+               'roofline': rec['roofline']}
+        print(f'analysis (c) dry run {arch} {shape} on the single mesh of '
+              f'{rec["chips"]} fake ranks (meta): ' + json.dumps(row),
+              flush=True)
+        print('  ' + pkg.roofline.fmt_table([rec['roofline']]).replace(
+            '\n', '\n  '), flush=True)
+        out.append(row)
+    return out
+
+
+def analysis_peaks(pkg) -> dict:
+    """(d) the card's own yardsticks: a bfloat16 matmul of
+    ANALYSIS_MATMUL_N cubed and a copy of ANALYSIS_COPY_BYTES (read and
+    written once), each median of ANALYSIS_PEAK_REPS, beside the roofline's
+    datasheet constants."""
+    import torch
+    rl = peaks()
+    n = ANALYSIS_MATMUL_N
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn((n, n), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), ANALYSIS_PEAK_REPS)
+    del a, b
+    src = torch.empty(ANALYSIS_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), ANALYSIS_PEAK_REPS)
+    del src, dst
+    if DEVICE == 'cuda':
+        torch.cuda.empty_cache()
+    flops = 2 * n ** 3
+    moved = 2 * ANALYSIS_COPY_BYTES
+    out = {'matmul': [n, n, n], 'matmul_ms': mm_ms,
+           'bf16_tflops': flops / (mm_ms / 1e3) / 1e12,
+           'datasheet_bf16_tflops': rl.PEAK_BF16_PER_S / 1e12,
+           'copy_bytes': ANALYSIS_COPY_BYTES, 'copy_ms': copy_ms,
+           'copy_tb_s': moved / (copy_ms / 1e3) / 1e12,
+           'datasheet_hbm_tb_s': rl.PEAK_BYTES_PER_S / 1e12}
+    out['bf16_share'] = out['bf16_tflops'] / out['datasheet_bf16_tflops']
+    out['hbm_share'] = out['copy_tb_s'] / out['datasheet_hbm_tb_s']
+    print(f'analysis (d) the card\'s own peaks (median of '
+          f'{ANALYSIS_PEAK_REPS}, {"CUDA events" if DEVICE == "cuda" else "host"}'
+          '): ' + json.dumps(out), flush=True)
+    return out
+
+
+def analysis_phase(pkg) -> dict:
+    """The analysis tools on this card: (c)'s dry runs start in
+    subprocesses, then (a) the counted train step on the card and on
+    ``meta``, (b) the counted render frame, (d) the card's own peaks, and
+    (c)'s records are read."""
+    t_phase = time.perf_counter()
+    procs = analysis_dryruns_start()
+    try:
+        out = {'train': analysis_train(pkg), 'frame': analysis_frame(pkg),
+               'peaks': analysis_peaks(pkg),
+               'dryruns': analysis_dryruns_finish(pkg, procs)}
+    finally:
+        for _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'analysis phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
 def load_package(src: pathlib.Path):
     """Import the ``repro_torch`` package under ``src`` and gather the
     modules that the phases use."""
@@ -3963,6 +4254,8 @@ def load_package(src: pathlib.Path):
     import repro_torch.launch.serve as lm_serve
     import repro_torch.launch.train as lm_train
     import repro_torch.analysis.flops as flops
+    import repro_torch.analysis.op_count as op_count
+    import repro_torch.analysis.roofline as roofline
     from repro_torch.configs.base import ShapeConfig
     import repro_torch.models.layers as layers
     import repro_torch.models.moe as moe
@@ -3993,7 +4286,7 @@ def load_package(src: pathlib.Path):
         configs=configs, lm_train=lm_train, flops=flops, layers=layers,
         ShapeConfig=ShapeConfig, render_dist=render_dist, mesh=mesh,
         compression=compression, elastic=elastic, sharding=sharding,
-        tree=tree)
+        tree=tree, op_count=op_count, roofline=roofline)
 
 
 def main() -> int:
@@ -4081,6 +4374,7 @@ def main() -> int:
     print(f'LM train phases took {time.perf_counter() - t0:.1f} s',
           flush=True)
     mesh_phase(pkg)
+    analysis_phase(pkg)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

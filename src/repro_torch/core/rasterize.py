@@ -191,15 +191,28 @@ def _walk_chunked(feats: TileFeatures, chunk: int, px, py, live_tp, slots,
                   state):
     """The early-exit walk: each chunk over the rows of the tiles still
     running, written back in place.  Returns (acc, trans, rec, nsig, niter,
-    itk)."""
+    itk).
+
+    On the ``meta`` device there are no values to decide which tiles still
+    run, so the walk takes its static worst case: every row through all
+    ``capacity / chunk`` chunks.  It dispatches the ops of a real walk in
+    which every tile runs to its last chunk, so a dry run's count bounds
+    any real walk's from above."""
     feats = pad_tile_features(feats, chunk)
     ncap = chunk_caps(feats.ids, chunk)
+    n_chunks = feats.ids.shape[1] // chunk
+    meta = feats.ids.device.type == 'meta'
     state = list(state)
     c = 0
     while True:
         trans = state[1]
         running = (c < ncap) & (live_tp & (trans > TRANSMITTANCE_EPS)).any(1)
-        rows = running.nonzero().squeeze(1)
+        if meta:     # every row until the last chunk (shapes only: no pads)
+            rows = torch.nonzero_static(
+                running, size=running.shape[0] if c < n_chunks else 0)
+        else:
+            rows = running.nonzero()
+        rows = rows.squeeze(1)
         if rows.numel() == 0:
             break
         r_px, r_py, r_live = px[rows], py[rows], live_tp[rows]

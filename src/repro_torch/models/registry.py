@@ -6,10 +6,12 @@ Per config: ``init_params`` (random weights from a seeded generator) and
 ``make_ctx`` / ``tp_of`` for a device mesh, the train step
 ``make_train_step`` (the family's ``train_loss``, its gradients by
 autograd, and ``optim.adam.step``), the serving entry points
-``make_prefill``, ``make_decode_step`` and ``init_decode_state``, with the
-JAX package's branch for each family: ``dense`` and ``vlm`` (chameleon's
-backbone is dense with qk-norm), ``moe``, ``encdec`` (whisper), ``ssm``
-(xlstm) and ``hybrid`` (zamba2); and the recipe's partition specs:
+``make_prefill``, ``make_decode_step`` and ``init_decode_state``
+(``abstract_decode_state`` on ``meta``), the dry run's ``input_specs``,
+with the JAX package's branch for each family: ``dense`` and ``vlm``
+(chameleon's backbone is dense with qk-norm), ``moe``, ``encdec``
+(whisper), ``ssm`` (xlstm) and ``hybrid`` (zamba2); and the recipe's
+partition specs:
 ``param_specs`` (by ``named_parameters`` name), ``batch_shardings`` and
 ``decode_state_specs``.
 """
@@ -19,7 +21,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from ..optim import adam
 from ..runtime.sharding import (P, ShardCtx, adaptive_spec, all_axes,
@@ -162,6 +164,35 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     if cfg.family == 'hybrid':
         return zamba2.init_state(cfg, batch, max_seq, tp, device=dev)
     return module_for(cfg).init_kv_cache(cfg, batch, max_seq, tp, device=dev)
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                          tp: int = 1):
+    """``init_decode_state``'s tree on the ``meta`` device: every shape and
+    dtype, no storage."""
+    return init_decode_state(cfg, batch, max_seq, tp, device='meta')
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The dry run's inputs of ``shape`` on the ``meta`` device: int32
+    ``tokens`` and ``labels`` [B, S] to train, ``tokens`` to prefill (with
+    ``frames`` [B, S, D] in ``cfg.dtype`` for ``encdec``), one ``token``
+    [B, 1] to decode against a cache of length S."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(n):
+        return torch.empty((b, n), dtype=torch.int32, device='meta')
+
+    if shape.kind == 'decode':
+        return {'token': tok(1)}
+    batch = {'tokens': tok(s)}
+    if shape.kind == 'train':
+        batch['labels'] = tok(s)
+    if cfg.family == 'encdec':
+        batch['frames'] = torch.empty((b, s, cfg.d_model),
+                                      dtype=getattr(torch, cfg.dtype),
+                                      device='meta')
+    return batch
 
 
 # ---------------------------------------------------------------------------
