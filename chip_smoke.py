@@ -230,8 +230,23 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     subprocess that must exit 0, with its roofline row and count time;
     (d) a bfloat16 matmul of 8192 cubed and a 4 GiB device copy, the
     TFLOP/s and TB/s they reach beside the roofline's datasheet peaks.
-    No hand-written kernel lies on these paths;
-15. print the total wall time, the ``{"kernels": [...]}`` line, then the
+    (c)'s smollm ``train_4k`` cell counts the partitioned program: its row
+    must say so, read a ``useful_ratio`` of at least 0.25 and count
+    collectives.  (c)'s subprocesses start before ``mesh_phase`` and run
+    beside it and the tp phase.  No hand-written kernel lies on these
+    paths;
+15. tp (``tp_phase``, between the mesh and analysis phases): a one-rank
+    NCCL process group and a (data 1, model 1) mesh; smollm-360m at its
+    published widths and depth and yi-34b at its published widths cut to
+    2 layers, bfloat16, seeded 0: the train step of 8 x 256 tokens through
+    the DTensor layout of ``registry.shard_step_inputs`` and plainly, from
+    the same draw: the loss within 1e-6 and the grad norm within 1e-5
+    relative (bit for bit is printed), the layout hooks called on
+    DTensors, every parameter a DTensor; each way the step's median of 3
+    by CUDA events, the host clock of the call, kernel time and launches
+    from ``torch.profiler`` and the peak memory.  No hand-written kernel
+    lies on this path;
+16. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -423,6 +438,17 @@ ANALYSIS_DRYRUNS = (('smollm-360m', 'train_4k'),
                     ('lumina-3dgs', 'render_1080p'))
 ANALYSIS_DRYRUN_TIMEOUT_S = 300
 ANALYSIS_MATMUL_N, ANALYSIS_COPY_BYTES, ANALYSIS_PEAK_REPS = 8192, 4 << 30, 10
+# the partitioned train_4k dry run of ANALYSIS_ARCH must read at least this
+# useful share (the replicated program read 1 / 256)
+ANALYSIS_MIN_USEFUL = 0.25
+# the tp phase on a one-rank (data 1, model 1) mesh of this card: each of
+# TP_ARCHS (arch, layers or None for the published depth) at its published
+# widths, bfloat16, steps TRAIN_BATCH x TRAIN_SEQ through the DTensor layout
+# of registry.shard_step_inputs and plainly, from the same draw (seed 0):
+# the first step's loss within TP_LOSS_REL and grad norm within TP_NORM_REL
+# relative, then TP_TIMED_STEPS more each, timed
+TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2))
+TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 DEVICE = 'cuda'
 
 
@@ -3979,6 +4005,140 @@ def mesh_phase(pkg) -> dict:
     return out
 
 
+def tp_hook_calls(pkg):
+    """Patch ``ShardCtx._constrain`` to count the layout hooks' calls on
+    DTensors (a list that grows by one a call)."""
+    from torch.distributed.tensor import DTensor
+    calls = []
+
+    def wrap(_, fn):
+        def constrain(self, x, assignments):
+            if isinstance(x, DTensor):
+                calls.append(1)
+            return fn(self, x, assignments)
+        return constrain
+
+    return calls, patched([(pkg.sharding.ShardCtx, '_constrain', 'hooks')],
+                          wrap)
+
+
+def tp_host_ms(step, reps: int) -> float:
+    """Median host clock of one ``step()`` call (after a sync, none after):
+    the time the host takes to issue the step."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
+    """One config of the tp phase: the step through the DTensor layout
+    and plainly from one draw, checked, then timed both ways."""
+    import torch
+    registry = pkg.registry
+    base = pkg.configs.get_config(arch)
+    if not LM_FULL:
+        cfg = base.reduced()
+    else:
+        cfg = base if layers is None else dataclasses.replace(
+            base, n_layers=layers)
+    cuda = DEVICE == 'cuda'
+    plain = registry.init_params(0, cfg, device=DEVICE)
+    batch = lm_train_batch(pkg, cfg, 6, TRAIN_BATCH, TRAIN_SEQ, DEVICE)
+    # the layout copies every block (one rank keeps the whole value)
+    model, _, dbatch = registry.shard_step_inputs(cfg, mesh, plain,
+                                                  batch=batch)
+    n_params = sum(p.numel() for p in plain.parameters())
+    runs = {}
+    for label, m, b, ctx_mesh in (('plain', plain, batch, None),
+                                  ('dtensor', model, dbatch, mesh)):
+        held = memory_mark() if cuda else 0
+        step_fn, acfg = registry.make_train_step(
+            cfg, registry.make_ctx(ctx_mesh, cfg))
+        state = {'opt': pkg.adam.init(list(m.parameters()), acfg)}
+        calls, hooks = tp_hook_calls(pkg)
+        with hooks:
+            _, state['opt'], metrics = step_fn(m, state['opt'], b)
+        loss = metrics['loss']
+        gnorm = metrics['grad_norm']
+        if label == 'dtensor':
+            loss, gnorm = loss.full_tensor(), gnorm.full_tensor()
+
+        def step(step_fn=step_fn, m=m, b=b, state=state):
+            _, state['opt'], _ = step_fn(m, state['opt'], b)
+
+        runs[label] = {
+            'loss': float(loss), 'grad_norm': float(gnorm),
+            'hook_calls': len(calls),
+            'step_ms': time_ms(step, TP_TIMED_STEPS),
+            'host_ms': tp_host_ms(step, TP_TIMED_STEPS),
+            'device_busy': lm_device_busy(step, 1) if cuda else None,
+            'peak_bytes': peak_since(held) if cuda else None}
+        del state, step
+    got, want = runs['dtensor'], runs['plain']
+    out = {'arch': arch, 'n_layers': cfg.n_layers, 'dtype': cfg.dtype,
+           'params': n_params, 'tokens': [TRAIN_BATCH, TRAIN_SEQ], **runs,
+           'loss_rel': abs(got['loss'] - want['loss']) / abs(want['loss']),
+           'grad_norm_rel': abs(got['grad_norm'] - want['grad_norm'])
+           / want['grad_norm'],
+           'bit_for_bit': (got['loss'] == want['loss']
+                           and got['grad_norm'] == want['grad_norm']),
+           'placements': sorted({str(tuple(p.placements))
+                                 for p in model.parameters()})}
+    print(f'tp {arch} ({cfg.n_layers} layers) through the DTensor layout on '
+          '(data 1, model 1) vs plainly, from one draw (step_ms: '
+          f'{"CUDA events" if cuda else "host"}, host_ms: host clock of the '
+          f'call, medians of {TP_TIMED_STEPS} after the checked step; '
+          'launches and kernel_ms: torch.profiler, one step; peak_bytes: '
+          'above what was held as the run began, both models held): '
+          + json.dumps(out), flush=True)
+    if not (math.isfinite(got['loss']) and math.isfinite(got['grad_norm'])
+            and out['loss_rel'] <= TP_LOSS_REL
+            and out['grad_norm_rel'] <= TP_NORM_REL):
+        fail(f'tp {arch}: the DTensor step differs from the plain step: '
+             f'{out}')
+    if got['hook_calls'] == 0 or want['hook_calls'] != 0:
+        fail(f'tp {arch}: layout hooks on DTensors {got["hook_calls"]} '
+             f'times through the layout (want some), {want["hook_calls"]} '
+             'plainly (want 0)')
+    if not all(isinstance(p, torch.distributed.tensor.DTensor)
+               for p in model.parameters()):
+        fail(f'tp {arch}: a parameter of the layout is not a DTensor')
+    del plain, model, batch, dbatch
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(pkg) -> dict:
+    """The partitioned LM program on this card: a one-rank process group
+    (NCCL; gloo on the CPU) and a (data 1, model 1) mesh, then each of
+    TP_ARCHS stepped through the DTensor layout and plainly.  NCCL takes
+    one rank a card, so the layouts that split work need more cards
+    (tests/test_torch_mesh_tp.py holds them on 4 CPU ranks)."""
+    import torch.distributed as dist
+    import torch.distributed.tensor  # noqa: F401  (DTensor for tp_train)
+    t_phase = time.perf_counter()
+    dist.init_process_group('nccl' if DEVICE == 'cuda' else 'gloo', rank=0,
+                            world_size=1, store=dist.HashStore())
+    try:
+        mesh = pkg.mesh.make_test_mesh((1, 1), device=DEVICE)
+        out = {arch: tp_train(pkg, mesh, arch, layers)
+               for arch, layers in TP_ARCHS}
+    finally:
+        dist.destroy_process_group()
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'tp phase took {out["phase_s"]:.1f} s', flush=True)
+    return out
+
+
 def op_names(fn, *args) -> collections.Counter:
     """The aten and c10d ops that one call of ``fn`` dispatches, by name
     (to show where two counts part)."""
@@ -4169,6 +4329,14 @@ def analysis_dryruns_finish(pkg, procs) -> list:
               flush=True)
         print('  ' + pkg.roofline.fmt_table([rec['roofline']]).replace(
             '\n', '\n  '), flush=True)
+        if (arch, shape) == (ANALYSIS_ARCH, 'train_4k') and not (
+                'partitioned' in rec['roofline']['note']
+                and rec['roofline']['useful_ratio'] >= ANALYSIS_MIN_USEFUL
+                and sum(rec['roofline']['collective_counts'].values()) > 0):
+            fail(f'analysis (c): the {arch} {shape} dry run is not the '
+                 'partitioned program, or reads a useful share below '
+                 f'{ANALYSIS_MIN_USEFUL} or no collectives: '
+                 f'{rec["roofline"]}')
         out.append(row)
     return out
 
@@ -4210,13 +4378,13 @@ def analysis_peaks(pkg) -> dict:
     return out
 
 
-def analysis_phase(pkg) -> dict:
+def analysis_phase(pkg, procs=None) -> dict:
     """The analysis tools on this card: (c)'s dry runs start in
-    subprocesses, then (a) the counted train step on the card and on
-    ``meta``, (b) the counted render frame, (d) the card's own peaks, and
-    (c)'s records are read."""
+    subprocesses (unless ``procs`` holds them, started earlier), then (a)
+    the counted train step on the card and on ``meta``, (b) the counted
+    render frame, (d) the card's own peaks, and (c)'s records are read."""
     t_phase = time.perf_counter()
-    procs = analysis_dryruns_start()
+    procs = procs if procs is not None else analysis_dryruns_start()
     try:
         out = {'train': analysis_train(pkg), 'frame': analysis_frame(pkg),
                'peaks': analysis_peaks(pkg),
@@ -4373,8 +4541,18 @@ def main() -> int:
         lm_train_phase(pkg, arch, cpu_depth)
     print(f'LM train phases took {time.perf_counter() - t0:.1f} s',
           flush=True)
-    mesh_phase(pkg)
-    analysis_phase(pkg)
+    # the dry runs of analysis (c) run in subprocesses beside the mesh and
+    # tp phases
+    procs = analysis_dryruns_start()
+    try:
+        mesh_phase(pkg)
+        tp_phase(pkg)
+    except BaseException:
+        for _, p, _, _ in procs:
+            p.kill()
+            p.wait()
+        raise
+    analysis_phase(pkg, procs)
     print(f'total wall time {time.perf_counter() - t_start:.1f} s',
           flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -22,7 +22,18 @@ computed), and applies ``hlo_parse``'s cost model to each:
   * collective bytes — the result of each c10d collective, under
                  ``hlo_parse``'s five keys, and split off as cross-pod when
                  the group's global ranks span more than one pod of
-                 ``pod_size``.
+                 ``pod_size``.  The functional collectives that DTensor's
+                 redistributions issue (``_c10d_functional``) count the
+                 same way, as does the all-to-all that DTensor issues on a
+                 CUDA mesh (``_dtensor.shard_dim_alltoall``); their
+                 ``wait_tensor`` and autograd wrapper cost nothing.
+
+DTensor.  The counter declines every op whose arguments hold a DTensor
+(``NotImplemented``), so DTensor's dispatch runs it and the counter sees
+what that dispatch runs on this rank: the op on the local blocks and the
+collectives of any redistribution.  The ops that DTensor's sharding
+propagation runs on fake tensors to learn an output's global shape are
+not part of the program and are not counted.
 
 Eager code runs a loop's body once per trip, so no trip-count multiplier
 is needed.  The hand-written kernels launch through ``ctypes`` and never
@@ -43,6 +54,8 @@ import weakref
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -62,6 +75,21 @@ _COLLECTIVES = {
     'send': 'collective-permute', 'recv_': 'collective-permute',
 }
 _POINT_TO_POINT = ('send', 'recv_')
+
+# _c10d_functional and _dtensor op -> hlo_parse's collective key; the
+# payload is the op's result.  These ops name their group by a string.
+_FUNCTIONAL_COLLECTIVES = {
+    'all_reduce': 'all-reduce', 'all_reduce_': 'all-reduce',
+    'all_reduce_coalesced': 'all-reduce',
+    'all_reduce_coalesced_': 'all-reduce',
+    'all_gather_into_tensor': 'all-gather',
+    'all_gather_into_tensor_out': 'all-gather',
+    'all_gather_into_tensor_coalesced': 'all-gather',
+    'reduce_scatter_tensor': 'reduce-scatter',
+    'reduce_scatter_tensor_coalesced': 'reduce-scatter',
+    'all_to_all_single': 'all-to-all',
+    'shard_dim_alltoall': 'all-to-all',     # _dtensor's, on a CUDA mesh
+}
 
 _DOT_OPS = {'mm', 'bmm', 'addmm', 'baddbmm', 'mv', 'dot'}
 _CONV_OPS = {'convolution', '_convolution', 'convolution_backward'}
@@ -165,6 +193,18 @@ def _group_ranks(name: str, args: tuple) -> list:
     return dist.get_process_group_ranks(pg)
 
 
+def _functional_group_ranks(args: tuple) -> list:
+    """The global ranks of a functional collective's group: its last
+    string argument is the group's name (a boxed group is read as is)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in reversed(args):
+        if isinstance(a, str):
+            return dist.get_process_group_ranks(_resolve_process_group(a))
+        if _is_process_group(a):
+            return dist.get_process_group_ranks(dist.ProcessGroup.unbox(a))
+    raise ValueError('a functional collective without a group')
+
+
 def crosses_pod(ranks, pod_size: int) -> bool:
     """Whether the global ``ranks`` span more than one pod of
     ``pod_size``."""
@@ -198,14 +238,19 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented     # counted as the local ops it runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        if name in _LIFTS:
-            return out
+        if (name in _LIFTS or any(issubclass(t, FakeTensor) for t in types)
+                or any(isinstance(t, FakeTensor) for t in _tensors(out))):
+            return out                # DTensor's shape propagation
         self.n_ops += 1
         if func.namespace == 'c10d':
             self._collective(name, args)
+        elif func.namespace in ('_c10d_functional', '_dtensor'):
+            self._functional_collective(name, args, out)
         elif name in _DOT_OPS or name in _CONV_OPS:
             cost = (_dot_cost if name in _DOT_OPS else _conv_cost)(
                 name, args, out)
@@ -225,12 +270,22 @@ class OpCounter(TorchDispatchMode):
         key = _COLLECTIVES.get(name)
         if key is None:      # barrier, monitored_barrier: no payload
             return
-        nbytes = sum(_nbytes(t) for t in _tensors(args[0]))
+        self._add_collective(key, sum(_nbytes(t) for t in _tensors(args[0])),
+                             _group_ranks(name, args))
+
+    def _add_collective(self, key: str, nbytes: int, ranks) -> None:
         self.coll_counts[key] = self.coll_counts.get(key, 0) + 1
         self.coll_bytes += nbytes
         self.bytes += nbytes
-        if crosses_pod(_group_ranks(name, args), self.pod_size):
+        if crosses_pod(ranks, self.pod_size):
             self.coll_bytes_crosspod += nbytes
+
+    def _functional_collective(self, name: str, args: tuple, out) -> None:
+        key = _FUNCTIONAL_COLLECTIVES.get(name)
+        if key is None:      # wait_tensor, _wrap_tensor_autograd, ...: free
+            return
+        self._add_collective(key, sum(_nbytes(t) for t in _tensors(out)),
+                             _functional_group_ranks(args))
 
     def _track(self, out, args, kwargs) -> None:
         """Add the storages that ``out`` made (not those of its inputs:

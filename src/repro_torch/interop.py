@@ -18,7 +18,7 @@ from .core.gaussians import GaussianScene
 from .core.projection import Projected
 from .core.radiance_cache import CacheState
 from .data.scenes import ChunkedScene, SceneArrays
-from .models import moe, whisper, xlstm, zamba2
+from .models import moe, registry, whisper, xlstm, zamba2
 from .models.transformer import Transformer
 from .optim.adam import AdamState
 
@@ -208,6 +208,15 @@ def lm_params_from_numpy(params, cfg, *, device):
     ``mlstm``; zamba2 ``mamba``; whisper ``enc`` and ``dec``)."""
     return _LM[cfg.family](cfg, _to_tensors(_lm_tree(params, cfg),
                                             device=device))
+
+
+def lm_params_on_mesh(params, cfg, mesh, *, device):
+    """``lm_params_from_numpy`` laid out on ``mesh`` by the config's
+    recipe (``registry.shard_step_inputs``): the JAX package's weights as
+    DTensors, each rank keeping its own block, so both packages start a
+    partitioned run from the same values."""
+    model = lm_params_from_numpy(params, cfg, device=device)
+    return registry.shard_step_inputs(cfg, mesh, model)[0]
 
 
 def decode_state_from_numpy(state, cfg, *, device):

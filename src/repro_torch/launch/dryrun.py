@@ -21,11 +21,19 @@ records:
     (``analysis.op_count``) and the three-term roofline on an H100
     (``analysis.roofline``).
 
-The port's mesh program is replicated: every rank runs the whole dense
+The dense and vlm cells (smollm-360m, yi-34b, command-r-35b,
+nemotron-4-15b, chameleon-34b) at the train and prefill shapes run the
+partitioned program: parameters, Adam state and batch are laid out as
+DTensors by the recipe's specs (``registry.shard_step_inputs``, the JAX
+package's ``in_shardings``), the model code's ``ShardCtx`` hooks
+redistribute its activations, and each rank computes and holds its own
+block.  The other cells (decode shapes, the moe, encdec, ssm and hybrid
+families) still run the replicated program: every rank runs the whole
 model on the whole batch, and only the expert-parallel MoE body,
-``psum_compressed`` and the sharded frame split their work.  The counts
-are what one rank of it really runs, so a dense cell's ``useful_ratio``
-reads about 1 / chips.
+``psum_compressed`` and the sharded frame split their work, so their
+``useful_ratio`` reads about 1 / chips.  Each roofline row's ``note``
+names the program it counted (after the overrides, if any).  The counts
+are what one rank really runs.
 
 Run one cell:     python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh single
 Run everything:   python -m repro_torch.launch.dryrun --all   (subprocess per cell)
@@ -52,7 +60,7 @@ from ..configs.base import SHAPES, shape_applicable
 from ..models import registry
 from ..optim import adam
 from ..tree import leaves
-from .mesh import make_production_mesh
+from .mesh import make_production_mesh, production_shape
 
 OUT_DIR = Path(__file__).resolve().parents[3] / 'build' / 'dryrun'
 
@@ -113,6 +121,13 @@ def init_fake_world(world_size: int) -> None:
 # Cell builders: (step, meta arguments, model FLOPs)
 # ---------------------------------------------------------------------------
 
+def partitioned(cfg, shape) -> bool:
+    """Whether the cell runs the partitioned program (dense and vlm at
+    the train and prefill shapes)."""
+    return cfg.family in ('dense', 'vlm') and shape.kind in ('train',
+                                                             'prefill')
+
+
 def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
     cfg = _opt_overrides(get_config(arch), opt)
     shape = SHAPES[shape_name]
@@ -122,6 +137,9 @@ def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
 
     params = registry.abstract_params(cfg, tp)
     batch = registry.input_specs(cfg, shape)
+    if partitioned(cfg, shape) and mesh is not None:
+        params, _, batch = registry.shard_step_inputs(cfg, mesh, params,
+                                                      batch=batch)
 
     if shape.kind == 'train':
         step, acfg = registry.make_train_step(cfg, ctx)
@@ -158,15 +176,44 @@ def build_render_cell(shape_name: str, mesh, opt: str = ''):
 
 def _tensor_bytes(tree) -> int:
     """Bytes of the distinct storages of the tensors in ``tree``, a
-    module's parameters and buffers included."""
+    module's parameters and buffers included; of a DTensor, this rank's
+    block."""
+    from torch.distributed.tensor import DTensor
     seen = {}
     for x in leaves(tree, lambda x: isinstance(x, (torch.Tensor,
                                                    torch.nn.Module))):
         for t in ([x] if isinstance(x, torch.Tensor)
                   else [*x.parameters(), *x.buffers()]):
+            if isinstance(t, DTensor):
+                t = t.to_local()
             st = t.untyped_storage()
             seen[st._cdata] = st.nbytes()
     return sum(seen.values())
+
+
+def program_of(arch: str, shape_name: str) -> str:
+    """Which program a cell counts: ``partitioned`` (DTensor layouts),
+    ``replicated`` (every rank the whole model) or ``frame`` (the render
+    cell's sharded frame)."""
+    if arch == 'lumina-3dgs':
+        return 'frame'
+    return ('partitioned' if partitioned(get_config(arch), SHAPES[shape_name])
+            else 'replicated')
+
+
+def dry_run_mesh(mesh_kind: str, program: str):
+    """The production mesh over the fake world.  A partitioned cell's mesh
+    has the card's device type, ``cuda``, and needs no card (the fake group
+    moves nothing, every tensor lies on ``meta``): the type picks
+    DTensor's redistributions, the card's all-to-all where a CPU mesh
+    falls back to an all-gather and a chunk.  The other cells' code places
+    plain tensors on the mesh's device, so theirs is the CPU's."""
+    multi = mesh_kind == 'multi'
+    if program != 'partitioned':
+        return make_production_mesh(multi_pod=multi, device='cpu')
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = production_shape(multi)
+    return init_device_mesh('cuda', shape, mesh_dim_names=axes)
 
 
 def stem_of(arch: str, shape_name: str, mesh_kind: str, opt: str = '') -> str:
@@ -181,8 +228,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     chips = MESH_RANKS[mesh_kind]
     init_fake_world(chips)
     try:
-        mesh = make_production_mesh(multi_pod=mesh_kind == 'multi',
-                                    device='cpu')
+        program = program_of(arch, shape_name)
+        mesh = dry_run_mesh(mesh_kind, program)
         if arch == 'lumina-3dgs':
             fn, args, mf = build_render_cell(shape_name, mesh, opt)
         else:
@@ -204,8 +251,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
            'output_size_in_bytes': _tensor_bytes(out),
            'temp_size_in_bytes': counts['peak_bytes'],
            'alias_size_in_bytes': 0, 'generated_code_size_in_bytes': 0}
+    # the row's note: the overrides, and the program counted
+    note = '; '.join(x for x in (opt, program) if x)
     roof = rl.from_counts(arch, shape_name, mesh_kind, chips, counts,
-                          model_flops=mf, memory=mem, note=opt)
+                          model_flops=mf, memory=mem, note=note)
     rec = {
         'arch': arch, 'shape': shape_name, 'mesh': mesh_kind,
         'chips': chips, 'opt': opt,
@@ -339,7 +388,7 @@ def main() -> None:
           f"memory={rl.fmt_seconds(r['t_memory_s'])} "
           f"collective={rl.fmt_seconds(r['t_collective_s'])} "
           f"bound={r['bottleneck']} useful={r['useful_ratio']:.2f} "
-          f"roofline%={100 * r['roofline_fraction']:.1f}")
+          f"roofline%={100 * r['roofline_fraction']:.1f} ({r['note']})")
 
 
 if __name__ == '__main__':

@@ -40,10 +40,15 @@ def _mesh(shape: tuple, axes: tuple, device, hint: str):
     return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+def production_shape(multi_pod: bool = False) -> tuple:
+    """``(shape, axis names)`` of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ('pod', 'data', 'model')
+    return (16, 16), ('data', 'model')
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')
-    return _mesh(shape, axes, device, 'production')
+    return _mesh(*production_shape(multi_pod), device, 'production')
 
 
 def make_test_mesh(shape=(2, 2), axes=('data', 'model'), device=None):

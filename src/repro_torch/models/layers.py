@@ -11,6 +11,36 @@ Conventions, as in the JAX package:
 Initialisation draws from an explicit ``torch.Generator`` on the device the
 parameters are made on; the distributions are the JAX package's, the
 streams are not.
+
+Partitioning: every function that the JAX package gives a ``ShardCtx``
+takes one as ``ctx`` (none: no layout) and calls its layout hooks where
+the JAX package does.  On DTensor inputs (``registry.shard_step_inputs``)
+the ops between the hooks run partitioned by DTensor's sharding
+propagation.  Where DTensor has no strategy or would mix a plain tensor
+into a DTensor op, the layout is explicit:
+
+  * constants (rotary frequencies, the head and vocab masks) are
+    DTensors too (``sharding.as_dtensor_like``);
+  * the projections out of the residual stream (``project``) and
+    ``repeat_kv`` run on each rank's blocks (``local_map``) in a layout
+    said in the code: a column-sharded (TP) weight takes its input with
+    the sequence gathered, a replicated one keeps the input's shards;
+    ``repeat_kv`` gathers the kv heads whole first; ``embed`` is
+    ``F.embedding``; the projections back into it (``merge``) take the
+    weight with its rows sharded as the input's last axis;
+  * ``flash_attention`` runs on each rank's block (``attend``): the
+    ``bthd`` layout never shards the sequence or ``head_dim``, so each
+    (batch, head) block attends alone, as GSPMD keeps the JAX scan local;
+  * the unembedding is laid out with its vocab over ``model`` (``ctx.dv``)
+    before the logits' matmul, as GSPMD would carry ``btv`` back into it;
+  * ``chunked_ce_loss`` gathers the sequence of the final states and the
+    labels once (``sharding.unshard_dims``) before it slices its chunks,
+    takes the log-sum-exp from a max and a sum (``_logsumexp``, reduced
+    across ranks; ``torch.logsumexp`` would gather the vocab), picks the
+    target's logit by a masked sum over the vocab (a DTensor gather on a
+    sharded vocab leaves a masked partial sum that a later op fails to
+    reduce, and its backward gathers the gradient whole), and returns the
+    loss replicated.
 """
 from __future__ import annotations
 
@@ -21,9 +51,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..runtime.sharding import padded_heads
+from ..runtime.sharding import (ShardCtx, as_dtensor_like, axis_placements,
+                                padded_heads, reduce_partials, to_replicated,
+                                unshard_dims)
 
 NEG_INF = -1e30      # the masked-score fill of the JAX package
+NO_CTX = ShardCtx()  # no mesh: every layout hook passes its input unchanged
 
 # ---------------------------------------------------------------------------
 # Basics
@@ -59,7 +92,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     steps = torch.arange(half, dtype=torch.float32, device=x.device)
-    freqs = torch.exp(-math.log(theta) * steps / half)
+    freqs = as_dtensor_like(torch.exp(-math.log(theta) * steps / half),
+                            positions)
     ang = positions.float()[..., None] * freqs                   # [B,S,half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -114,22 +148,76 @@ def _mask_heads(out: torch.Tensor, n_heads: int) -> torch.Tensor:
     mask = _head_mask(out.shape[2], n_heads, out.dtype, out.device)
     if mask is None:
         return out
-    return out * mask[None, None, :, None]
+    return out * as_dtensor_like(mask, out)[None, None, :, None]
 
 
-def _qkv(p, x, cfg, positions):
+def project(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """``x @ w`` for each weight ``w`` [D, F]: the projections out of the
+    residual stream.  On DTensors each runs on the rank's blocks
+    (``local_map``) with the layout said here, because DTensor's own
+    matmul flattens ``x``'s batch and sequence into one axis, which some
+    torch versions refuse when both are sharded (``btd``).  On each mesh
+    dimension: a weight whose columns are sharded there (TP) takes ``x``
+    with that dimension gathered (sequence parallelism's all-gather) and
+    gives columns sharded; else the result keeps ``x``'s shard.  The
+    gradients are declared to match: a pending sum for ``x`` where the
+    columns were split, for ``w`` where ``x`` was."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return tuple(x @ w for w in ws)
+    from torch.distributed.tensor.experimental import local_map
+    x = reduce_partials(unshard_dims(x, (-1,)))    # the contraction whole
+    mesh, n, out, seen = x.device_mesh, x.device_mesh.ndim, [], {}
+    for w in ws:
+        w = reduce_partials(unshard_dims(w, (0,)))
+        tp = [w.placements[i].is_shard(1) for i in range(n)]
+        pl = tuple(Replicate() if tp[i] else p
+                   for i, p in enumerate(x.placements))
+        if pl not in seen:
+            seen[pl] = x.redistribute(mesh, pl) if pl != x.placements else x
+        xi = seen[pl]
+        out_pl = [Shard(x.ndim - 1) if tp[i] else p
+                  for i, p in enumerate(pl)]
+        dx_pl = [Partial() if tp[i] else p for i, p in enumerate(pl)]
+        dw_pl = [Partial() if p.is_shard() else w.placements[i]
+                 for i, p in enumerate(pl)]
+        out.append(local_map(torch.matmul, out_placements=out_pl,
+                             in_placements=(list(pl), list(w.placements)),
+                             in_grad_placements=(dx_pl, dw_pl),
+                             device_mesh=mesh)(xi, w))
+    return tuple(out)
+
+
+def merge(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a weight whose rows meet ``h``'s sharded last axis
+    (the attention output's ``wo``, the MLP's ``w_down``).  On DTensors
+    ``w`` is first laid out with its rows sharded where ``h``'s last axis
+    is (a replicated ``dp`` weight is sliced, nothing is sent): DTensor
+    records the matmul on the weight as given, so a replicated one would
+    make the backward compute ``h``'s whole gradient on every rank."""
+    if hasattr(h, 'placements'):
+        from torch.distributed.tensor import Shard
+        pl = [Shard(0) if hp.is_shard(h.ndim - 1) else wp
+              for hp, wp in zip(h.placements, w.placements)]
+        if tuple(pl) != tuple(w.placements):
+            w = w.redistribute(w.device_mesh, pl)
+    return h @ w
+
+
+def _qkv(p, x, cfg, positions, ctx: ShardCtx = NO_CTX):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     hp = p['wq'].shape[1] // hd
-    q = (x @ p['wq']).reshape(b, s, hp, hd)
-    k = (x @ p['wk']).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p['wv']).reshape(b, s, cfg.n_kv_heads, hd)
+    q, k, v = project(x, p['wq'], p['wk'], p['wv'])
+    q = q.reshape(b, s, hp, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p['q_norm'], cfg.norm_eps)
         k = rmsnorm(k, p['k_norm'], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    return q, k, v, hp, hd
+    return ctx.bthd(q), k, v, hp, hd
 
 
 def repeat_kv(k: torch.Tensor, hp: int,
@@ -137,8 +225,18 @@ def repeat_kv(k: torch.Tensor, hp: int,
     """[B, T, Hkv, hd] -> [B, T, Hp, hd]: GQA head-group expansion by gather.
 
     Real q head i attends kv head ``i * Hkv // n_heads``; padded q heads
-    (i >= n_heads, masked downstream) clamp to the last kv head.
+    (i >= n_heads, masked downstream) clamp to the last kv head.  A
+    DTensor's heads are gathered whole, then each rank gathers its block
+    (``local_map``): DTensor's strategy for the gather's backward
+    (``index_put`` with ``None`` indices) fails on some torch versions.
     """
+    if hasattr(k, 'placements'):
+        from torch.distributed.tensor.experimental import local_map
+        k = unshard_dims(k, (2,))
+        pl = list(k.placements)
+        return local_map(lambda t: repeat_kv(t, hp, n_heads),
+                         out_placements=pl, in_placements=(pl,),
+                         device_mesh=k.device_mesh)(k)
     hkv = k.shape[2]
     n_real = n_heads or hp
     idx = (torch.clamp(torch.arange(hp, device=k.device), max=n_real - 1)
@@ -198,28 +296,52 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     return torch.cat(outs, dim=1)
 
 
-def attention_train(p, x, cfg, positions, causal: bool = True) -> torch.Tensor:
+def attend(q, k, v, *, causal: bool) -> torch.Tensor:
+    """``flash_attention(q, k, v)``; on DTensors in the ``bthd`` layout,
+    on each rank's block (``local_map``): the layout shards only batch and
+    heads, so every block's attention is whole, and the result keeps q's
+    layout.  Raises on a layout that shards the sequence or ``head_dim``
+    (the block's softmax would be partial)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(q, DTensor):
+        return flash_attention(q, k, v, causal=causal)
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(q.placements)
+    for t in (q, k, v):
+        if tuple(t.placements) != pl or any(
+                isinstance(x, Shard) and x.dim in (1, 3) for x in pl):
+            raise ValueError(f'attend needs q, k and v in one bthd layout, '
+                             f'got {[tuple(t.placements) for t in (q, k, v)]}')
+    pl = list(pl)    # a tuple of placements reads as one per output
+    return local_map(lambda q, k, v: flash_attention(q, k, v, causal=causal),
+                     out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
+def attention_train(p, x, cfg, positions, causal: bool = True,
+                    ctx: ShardCtx = NO_CTX) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill / encoder)."""
-    q, k, v, hp, hd = _qkv(p, x, cfg, positions)
-    k = repeat_kv(k, hp, cfg.n_heads)
-    v = repeat_kv(v, hp, cfg.n_heads)
-    out = _mask_heads(flash_attention(q, k, v, causal=causal), cfg.n_heads)
+    q, k, v, hp, hd = _qkv(p, x, cfg, positions, ctx)
+    k = ctx.bthd(repeat_kv(k, hp, cfg.n_heads))
+    v = ctx.bthd(repeat_kv(v, hp, cfg.n_heads))
+    out = ctx.bthd(_mask_heads(attend(q, k, v, causal=causal), cfg.n_heads))
     b, s = x.shape[:2]
-    return out.reshape(b, s, hp * hd) @ p['wo']
+    return ctx.btd(merge(out.reshape(b, s, hp * hd), p['wo']))
 
 
-def attention_prefill(p, x, cfg, positions):
+def attention_prefill(p, x, cfg, positions, ctx: ShardCtx = NO_CTX):
     """Like ``attention_train``, also returning the (k, v) cache
     [B, S, Hkv, hd]."""
-    q, k, v, hp, hd = _qkv(p, x, cfg, positions)
-    kr = repeat_kv(k, hp, cfg.n_heads)
-    vr = repeat_kv(v, hp, cfg.n_heads)
-    out = _mask_heads(flash_attention(q, kr, vr, causal=True), cfg.n_heads)
+    q, k, v, hp, hd = _qkv(p, x, cfg, positions, ctx)
+    kr = ctx.bthd(repeat_kv(k, hp, cfg.n_heads))
+    vr = ctx.bthd(repeat_kv(v, hp, cfg.n_heads))
+    out = _mask_heads(attend(q, kr, vr, causal=True), cfg.n_heads)
     b, s = x.shape[:2]
-    return out.reshape(b, s, hp * hd) @ p['wo'], (k, v)
+    y = ctx.btd(merge(out.reshape(b, s, hp * hd), p['wo']))
+    return y, (ctx.kv_cache(k), ctx.kv_cache(v))
 
 
-def attention_decode(p, x, cfg, cache, pos: int):
+def attention_decode(p, x, cfg, cache, pos: int, ctx: ShardCtx = NO_CTX):
     """One-token decode: x [B, 1, D], cache (k, v) [B, T, Hkv, hd], ``pos``
     the position written.
 
@@ -231,12 +353,13 @@ def attention_decode(p, x, cfg, cache, pos: int):
     b = x.shape[0]
     hd = cfg.resolved_head_dim()
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new, hp, _ = _qkv(p, x, cfg, positions)
+    q, k_new, v_new, hp, _ = _qkv(p, x, cfg, positions, ctx)
     k_cache, v_cache = cache
     t = k_cache.shape[1]
     at = min(max(pos, 0), t - 1)
     k_cache[:, at] = k_new[:, 0]
     v_cache[:, at] = v_new[:, 0]
+    k_cache, v_cache = ctx.kv_cache(k_cache), ctx.kv_cache(v_cache)
 
     kr = repeat_kv(k_cache, hp, cfg.n_heads)       # [B, T, Hp, hd]
     vr = repeat_kv(v_cache, hp, cfg.n_heads)
@@ -247,31 +370,33 @@ def attention_decode(p, x, cfg, cache, pos: int):
     w = torch.softmax(sc, dim=-1)
     out = torch.einsum('bhqk,bkhd->bqhd', w, vr.float()).to(x.dtype)
     out = _mask_heads(out, cfg.n_heads)
-    return out.reshape(b, 1, hp * hd) @ p['wo'], (k_cache, v_cache)
+    return ctx.btd(merge(out.reshape(b, 1, hp * hd), p['wo'])), (k_cache,
+                                                                  v_cache)
 
 
-def attention_cross(p, x, cfg, kv) -> torch.Tensor:
+def attention_cross(p, x, cfg, kv, ctx: ShardCtx = NO_CTX) -> torch.Tensor:
     """Cross-attention (the whisper decoder): ``kv`` = (k, v) [B, T, Hkv,
     hd] from the encoder states; no rope, no mask, through
     ``flash_attention`` with its bfloat16 roundings."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     hp = p['wq'].shape[1] // hd
-    q = (x @ p['wq']).reshape(b, s, hp, hd)
+    q = ctx.bthd(project(x, p['wq'])[0].reshape(b, s, hp, hd))
     k, v = kv
-    kr = repeat_kv(k, hp, cfg.n_heads)
-    vr = repeat_kv(v, hp, cfg.n_heads)
-    out = _mask_heads(flash_attention(q, kr, vr, causal=False), cfg.n_heads)
-    return out.reshape(b, s, hp * hd) @ p['wo']
+    kr = ctx.bthd(repeat_kv(k, hp, cfg.n_heads))
+    vr = ctx.bthd(repeat_kv(v, hp, cfg.n_heads))
+    out = _mask_heads(attend(q, kr, vr, causal=False), cfg.n_heads)
+    return ctx.btd(merge(out.reshape(b, s, hp * hd), p['wo']))
 
 
-def cross_kv(p, enc: torch.Tensor, cfg) -> tuple:
+def cross_kv(p, enc: torch.Tensor, cfg, ctx: ShardCtx = NO_CTX) -> tuple:
     """The cross-attention k/v [B, T, Hkv, hd] of encoder output ``enc``."""
     b, s, _ = enc.shape
     hd = cfg.resolved_head_dim()
-    k = (enc @ p['wk']).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (enc @ p['wv']).reshape(b, s, cfg.n_kv_heads, hd)
-    return k, v
+    k, v = project(enc, p['wk'], p['wv'])
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    return ctx.kv_cache(k), ctx.kv_cache(v)
 
 
 # ---------------------------------------------------------------------------
@@ -290,17 +415,18 @@ def mlp_params(gen: torch.Generator, cfg, dtype,
     return p
 
 
-def mlp(p, x, cfg) -> torch.Tensor:
-    up = x @ p['w_up']
+def mlp(p, x, cfg, ctx: ShardCtx = NO_CTX) -> torch.Tensor:
+    names = ('w_up', 'w_gate') if cfg.act == 'swiglu' else ('w_up',)
+    up, *gate = (ctx.btf(t) for t in project(x, *(p[n] for n in names)))
     if cfg.act == 'swiglu':
-        h = F.silu(x @ p['w_gate']) * up
+        h = F.silu(gate[0]) * up
     elif cfg.act == 'relu2':           # nemotron squared-ReLU
         h = torch.square(F.relu(up))
     elif cfg.act == 'gelu':            # jax.nn.gelu's default: tanh form
         h = F.gelu(up, approximate='tanh')
     else:
         raise ValueError(cfg.act)
-    return h @ p['w_down']
+    return ctx.btd(merge(h, p['w_down']))
 
 
 # ---------------------------------------------------------------------------
@@ -325,42 +451,70 @@ def embed_params(gen: torch.Generator, cfg, dtype, tp: int = 1) -> dict:
     return p
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p['embed'][tokens]
+def embed(p, tokens: torch.Tensor, ctx: ShardCtx = NO_CTX) -> torch.Tensor:
+    """The rows of the table for ``tokens`` (``F.embedding``: the same
+    gather as indexing, and an op that DTensor lays out on every torch
+    version, its backward too)."""
+    return ctx.btd(F.embedding(tokens, p['embed']))
 
 
 def _unembed_matrix(p) -> torch.Tensor:
     return p['unembed'] if 'unembed' in p else p['embed'].T
 
 
-def logits(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def _vocab_ids(lg: torch.Tensor) -> torch.Tensor:
+    """The vocab ids 0..Vp-1 of ``lg`` [..., Vp], laid out as its vocab
+    axis when it is a DTensor (each rank makes its own block)."""
+    ids = torch.arange(lg.shape[-1], device=lg.device)
+    if not hasattr(lg, 'placements'):
+        return ids
+    return as_dtensor_like(ids, lg, axis_placements(lg, -1))
+
+
+def _vocab_mask(lg: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``lg`` [..., Vp] with its padded vocab entries at ``NEG_INF``."""
+    if lg.shape[-1] == vocab:
+        return lg
+    return torch.where(_vocab_ids(lg) < vocab, lg, NEG_INF)
+
+
+def logits(p, x: torch.Tensor, cfg, ctx: ShardCtx = NO_CTX) -> torch.Tensor:
     h = rmsnorm(x, p['final_norm'], cfg.norm_eps)
-    lg = h @ _unembed_matrix(p)
-    vp = lg.shape[-1]
-    if vp != cfg.vocab:   # mask the vocab padding
-        lg = torch.where(torch.arange(vp, device=lg.device) < cfg.vocab,
-                         lg, NEG_INF)
-    return lg
+    return _vocab_mask(ctx.btv(h @ ctx.dv(_unembed_matrix(p))), cfg.vocab)
 
 
-def _ce_chunk(h_c, w, l_c, vocab: int):
+def _logsumexp(lg: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the last axis from the max, as ``jax.nn.logsumexp``
+    (the max held constant); of a vocab-sharded DTensor, partitioned: a
+    max and a sum reduced across ranks, the logits never gathered.  Each
+    is reduced where it is made (left pending, DTensor may split it over
+    the batch instead, and the gradient then comes back in a layout that
+    costs an all-to-all of the logits)."""
+    m = reduce_partials(lg.amax(dim=-1, keepdim=True).detach())
+    return torch.log(reduce_partials(torch.exp(lg - m).sum(dim=-1))) + m[
+        ..., 0]
+
+
+def _ce_chunk(h_c, w, l_c, vocab: int, ctx: ShardCtx = NO_CTX):
     """The summed negative log-likelihood [] and the count of labels >= 0
     of one chunk: h_c [B, c, D] normed states, w [D, Vp], l_c [B, c]."""
-    lg = (h_c @ w).float()                                   # [B, c, Vp]
-    vp = lg.shape[-1]
-    if vp != vocab:   # mask the vocab padding out of the partition function
-        lg = torch.where(torch.arange(vp, device=lg.device) < vocab, lg,
-                         NEG_INF)
-    lse = torch.logsumexp(lg, dim=-1)
-    tgt = torch.gather(lg, -1, torch.clamp(l_c, min=0)[..., None].long())[
-        ..., 0]
+    # the padding is masked out of the partition function
+    lg = _vocab_mask(ctx.btv((h_c @ w).float()), vocab)      # [B, c, Vp]
+    lse = _logsumexp(lg)
+    # the target's logit as the one nonzero term of a sum over the vocab
+    # (exact): partitioned on a vocab-sharded DTensor, where a gather's
+    # backward would gather the logits' gradient whole.  Its pending sum
+    # is reduced at once, so the gradient comes back replicated over the
+    # vocab's ranks, not split over the batch
+    hit = _vocab_ids(lg) == torch.clamp(l_c, min=0)[..., None]
+    tgt = reduce_partials(torch.where(hit, lg, 0.0).sum(dim=-1))
     valid = l_c >= 0
     nll = torch.where(valid, lse - tgt, 0.0)
     return nll.sum(), valid.sum(dtype=torch.int32)
 
 
 def chunked_ce_loss(p, x: torch.Tensor, labels: torch.Tensor,
-                    cfg) -> torch.Tensor:
+                    cfg, ctx: ShardCtx = NO_CTX) -> torch.Tensor:
     """Sequence-chunked cross entropy, the mean over labels >= 0 (-1 is
     ignored).  x [B, S, D] final hidden states, labels [B, S].
 
@@ -371,13 +525,15 @@ def chunked_ce_loss(p, x: torch.Tensor, labels: torch.Tensor,
     c = min(cfg.loss_chunk, s)
     while s % c:
         c -= 1
-    w = _unembed_matrix(p)
-    h = rmsnorm(x, p['final_norm'], cfg.norm_eps)
+    w = ctx.dv(_unembed_matrix(p))
+    # the sequence whole on each rank, gathered once for all the chunks
+    h = unshard_dims(rmsnorm(x, p['final_norm'], cfg.norm_eps), (1,))
+    labels = unshard_dims(labels, (1,))
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(s // c):
         nll, n = remat(True, _ce_chunk, h[:, i * c:(i + 1) * c], w,
-                       labels[:, i * c:(i + 1) * c], cfg.vocab)
+                       labels[:, i * c:(i + 1) * c], cfg.vocab, ctx)
         nll_sum = nll_sum + nll
         count = count + n
-    return nll_sum / torch.clamp(count, min=1)
+    return to_replicated(nll_sum / torch.clamp(count, min=1))

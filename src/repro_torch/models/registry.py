@@ -13,7 +13,11 @@ with the JAX package's branch for each family: ``dense`` and ``vlm``
 (whisper), ``ssm`` (xlstm) and ``hybrid`` (zamba2); and the recipe's
 partition specs:
 ``param_specs`` (by ``named_parameters`` name), ``batch_shardings`` and
-``decode_state_specs``.
+``decode_state_specs``.  ``shard_step_inputs`` lays out a model's
+parameters, its Adam state and a batch as DTensors by those specs, as the
+JAX package's dry run gives them to ``jax.jit`` as ``in_shardings``; the
+train and prefill steps of the dense and vlm families run partitioned on
+such a layout, and as before on plain tensors.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from ..optim import adam
 from ..runtime.sharding import (P, ShardCtx, adaptive_spec, all_axes,
-                                axes_size, batch_axes, mesh_axes)
+                                axes_size, batch_axes, distribute_like,
+                                distribute_tree, mesh_axes,
+                                spec_to_placements, to_replicated)
 from . import moe, transformer, whisper, xlstm, zamba2
 
 _FAMILY = {
@@ -111,8 +117,8 @@ def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
     for ``encdec``."""
     if cfg.family in ('dense', 'vlm'):
         def prefill(params, batch):
-            lg, _ = params.prefill(batch['tokens'])
-            return lg
+            lg, _ = params.prefill(batch['tokens'], ctx)
+            return to_replicated(lg)
         return prefill
 
     @torch.no_grad()
@@ -138,6 +144,11 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
         return step
 
     if cfg.family == 'moe':
+        def step(params, token, state, pos: int):
+            return params.decode_step(token, state, pos, ctx)
+        return step
+
+    if cfg.family in ('dense', 'vlm'):
         def step(params, token, state, pos: int):
             return params.decode_step(token, state, pos, ctx)
         return step
@@ -294,6 +305,61 @@ def batch_shardings(cfg: ModelConfig, mesh, batch_tree) -> Any:
         return adaptive_spec(leaf.shape, mesh, [(0, baxes), (1, 'model')])
 
     return _map_with_path(rule, batch_tree)
+
+
+def _unflatten(named) -> dict:
+    """``(name, tensor)`` pairs of ``named_parameters`` as the nested tree
+    a family's model is built from: a dotted part that is a number indexes
+    a list (``blocks.0.attn.wq`` is ``tree['blocks'][0]['attn']['wq']``)."""
+    tree: dict = {}
+    for name, t in named:
+        *path, leaf = name.split('.')
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    return lists(tree)
+
+
+def shard_step_inputs(cfg: ModelConfig, mesh, params, opt_state=None,
+                      batch=None):
+    """The step's inputs laid out on ``mesh`` as DTensors, the JAX
+    package's ``in_shardings``: the model ``params`` (a new model of the
+    same family, each parameter by ``param_specs``), its Adam state
+    (each moment as its parameter, the step count replicated) and a batch
+    (``batch_shardings``); ``None`` passes through.  Each rank holds the
+    whole values (the same seed or weights on every rank) and keeps its
+    own block.  Returns ``(params, opt_state, batch)``."""
+    if params is not None:
+        specs = param_specs(cfg, params, mesh)
+        named = list(params.named_parameters())
+        placed = [(n, distribute_like(p, mesh,
+                                      spec_to_placements(specs[n], mesh)))
+                  for n, p in named]
+        if opt_state is not None:
+            pl = [t.placements for _, t in placed]
+            opt_state = adam.AdamState(
+                step=distribute_like(opt_state.step, mesh,
+                                     spec_to_placements(P(), mesh)),
+                mu=tuple(distribute_like(m, mesh, q)
+                         for m, q in zip(opt_state.mu, pl)),
+                nu=tuple(distribute_like(v, mesh, q)
+                         for v, q in zip(opt_state.nu, pl)))
+        params = type(params)(params.cfg, _unflatten(placed))
+    elif opt_state is not None:
+        raise ValueError('the Adam state is laid out by its parameters')
+    if batch is not None:
+        batch = distribute_tree(batch, batch_shardings(cfg, mesh, batch),
+                                mesh)
+    return params, opt_state, batch
 
 
 def decode_state_specs(cfg: ModelConfig, state_tree, mesh, *,

@@ -9,12 +9,18 @@ into one ``Block`` a layer: ``tok`` holds ``embed``, ``final_norm`` and
 
 The serving state is one preallocated K/V pair [L, B, T, Hkv, hd];
 ``decode_step`` writes each new token's K/V into it in place.
+
+Every entry point takes the ``ShardCtx`` (``ctx``, none by default) and
+calls its hooks where the JAX package's ``transformer`` does, its layers
+too: on parameters and a batch laid out as DTensors
+(``registry.shard_step_inputs``) the model runs partitioned.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..runtime.sharding import ShardCtx, as_dtensor_like, unshard_dims
 from . import layers as L
 
 
@@ -28,23 +34,29 @@ class Block(nn.Module):
         self.attn = nn.ParameterDict(p['attn'])
         self.mlp = nn.ParameterDict(p['mlp'])
 
-    def _mlp(self, x, cfg):
-        return x + L.mlp(self.mlp, L.rmsnorm(x, self.ln2, cfg.norm_eps), cfg)
+    def _mlp(self, x, cfg, ctx):
+        return ctx.btd(x + L.mlp(ctx.weights(self.mlp),
+                                 L.rmsnorm(x, self.ln2, cfg.norm_eps), cfg,
+                                 ctx))
 
-    def train_block(self, x, cfg, positions):
+    def train_block(self, x, cfg, positions, ctx: ShardCtx = L.NO_CTX):
         h = L.rmsnorm(x, self.ln1, cfg.norm_eps)
-        return self._mlp(x + L.attention_train(self.attn, h, cfg, positions),
-                         cfg)
+        return self._mlp(x + L.attention_train(ctx.weights(self.attn), h,
+                                               cfg, positions, ctx=ctx),
+                         cfg, ctx)
 
-    def prefill_block(self, x, cfg, positions):
+    def prefill_block(self, x, cfg, positions, ctx: ShardCtx = L.NO_CTX):
         h = L.rmsnorm(x, self.ln1, cfg.norm_eps)
-        y, kv = L.attention_prefill(self.attn, h, cfg, positions)
-        return self._mlp(x + y, cfg), kv
+        y, kv = L.attention_prefill(ctx.weights(self.attn), h, cfg,
+                                    positions, ctx)
+        return self._mlp(x + y, cfg, ctx), kv
 
-    def decode_block(self, x, cfg, cache, pos: int):
+    def decode_block(self, x, cfg, cache, pos: int,
+                     ctx: ShardCtx = L.NO_CTX):
         h = L.rmsnorm(x, self.ln1, cfg.norm_eps)
-        y, _ = L.attention_decode(self.attn, h, cfg, cache, pos)
-        return self._mlp(x + y, cfg)
+        y, _ = L.attention_decode(ctx.weights(self.attn), h, cfg, cache, pos,
+                                  ctx)
+        return self._mlp(x + y, cfg, ctx)
 
 
 class Transformer(nn.Module):
@@ -61,54 +73,64 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(p) for p in params['blocks'])
 
     def _positions(self, tokens):
+        """Positions 0..S-1 of each row [B, S] int32, laid out as
+        ``tokens`` when it is a DTensor (each rank makes its own block)."""
         b, s = tokens.shape
-        return torch.arange(s, dtype=torch.int32,
-                            device=tokens.device)[None].expand(b, s)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=tokens.device)[None].expand(b, s)
+        return as_dtensor_like(pos, tokens, getattr(tokens, 'placements',
+                                                    None))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
         """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
         block's activations are recomputed in the backward pass."""
-        x = L.embed(self.tok, tokens)
+        x = L.embed(self.tok, tokens, ctx)
         positions = self._positions(tokens)
         for blk in self.blocks:
             x = L.remat(self.cfg.remat, blk.train_block, x, self.cfg,
-                        positions)
+                        positions, ctx)
         return x
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return L.logits(self.tok, x, self.cfg)
+    def logits(self, x: torch.Tensor,
+               ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
+        return L.logits(self.tok, x, self.cfg, ctx)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
+    def prefill(self, tokens: torch.Tensor, ctx: ShardCtx = L.NO_CTX):
         """tokens [B, S] -> (logits of the last position [B, V], caches):
         the caches are the K and V of every layer, [L, B, S, Hkv, hd]."""
-        x = L.embed(self.tok, tokens)
+        x = L.embed(self.tok, tokens, ctx)
         positions = self._positions(tokens)
         ks, vs = [], []
         for blk in self.blocks:
-            x, (k, v) = blk.prefill_block(x, self.cfg, positions)
+            x, (k, v) = blk.prefill_block(x, self.cfg, positions, ctx)
             ks.append(k)
             vs.append(v)
-        return self.logits(x[:, -1:, :])[:, 0], (torch.stack(ks),
-                                                 torch.stack(vs))
+        # the sequence gathered whole before the last position is sliced
+        last = unshard_dims(x, (1,))[:, -1:, :]
+        return self.logits(last, ctx)[:, 0], (torch.stack(ks),
+                                              torch.stack(vs))
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, caches, pos: int):
+    def decode_step(self, token: torch.Tensor, caches, pos: int,
+                    ctx: ShardCtx = L.NO_CTX):
         """One decode step.  token [B, 1] int; caches [L, B, T, Hkv, hd]
         pair, written in place at ``pos`` for every row.  Returns (logits
         [B, V], caches)."""
         k_all, v_all = caches
-        x = L.embed(self.tok, token)
+        x = L.embed(self.tok, token, ctx)
         for i, blk in enumerate(self.blocks):
-            x = blk.decode_block(x, self.cfg, (k_all[i], v_all[i]), pos)
-        return self.logits(x)[:, 0], caches
+            x = blk.decode_block(x, self.cfg, (k_all[i], v_all[i]), pos, ctx)
+        return self.logits(x, ctx)[:, 0], caches
 
 
-def train_loss(params: Transformer, batch: dict, cfg, ctx) -> torch.Tensor:
+def train_loss(params: Transformer, batch: dict, cfg,
+               ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
     """The mean next-token cross entropy of ``batch`` (``tokens``,
     ``labels``; -1 labels ignored).  ``cfg`` is the model's own."""
-    h = params(batch['tokens'])
-    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
+    h = params(batch['tokens'], ctx)
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg, ctx)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> Transformer:

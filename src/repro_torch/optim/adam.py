@@ -18,6 +18,12 @@ time, and applies the clipping scale to each gradient as it goes: a step
 holds no second copy of the gradients or the moments, which a model of
 3.7 B parameters with float32 moments would not fit beside on an 80 GB
 card.
+
+On DTensor parameters (``registry.shard_step_inputs``) each moment has its
+parameter's placements, each gradient is first laid out as its parameter
+(a pending sum over the batch axes is reduced there, once), and the
+global norm is one replicated scalar over every rank's blocks; the update
+of each block stays local and in place.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+
+from ..runtime.sharding import as_dtensor_like, to_replicated
 
 
 class AdamState(NamedTuple):
@@ -45,16 +53,34 @@ class AdamConfig:
 
 
 def init(params: Sequence[torch.Tensor], cfg: AdamConfig) -> AdamState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,  # noqa: E731
-                                  device=p.device)
+    """Zero moments in ``cfg.state_dtype``, each laid out as its parameter
+    (``zeros_like`` keeps a DTensor's placements), and step 0 (of DTensor
+    parameters, replicated on their mesh)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.state_dtype,  # noqa: E731
+                                       memory_format=torch.contiguous_format)
     return AdamState(
-        step=torch.zeros((), dtype=torch.int32, device=params[0].device),
+        step=as_dtensor_like(torch.zeros((), dtype=torch.int32,
+                                         device=params[0].device), params[0]),
         mu=tuple(zeros(p) for p in params),
         nu=tuple(zeros(p) for p in params))
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    """The float32 L2 norm of all ``tensors``; of DTensors, replicated on
+    every rank."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tensors))
+    return to_replicated(norm)
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` in the layout of its parameter ``p`` (DTensors:
+    a replicated parameter's pending sum is all-reduced, a sharded one's
+    reduce-scattered); plain tensors pass unchanged."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(g, DTensor) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 @torch.no_grad()
@@ -64,6 +90,7 @@ def step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     """One AdamW update at ``cfg.lr * lr_scale``.  The parameters and the
     moments of ``state`` are updated in place; returns (params, the state
     with its step advanced, pre-clip global gradient norm)."""
+    grads = [_as_param(g, p) for g, p in zip(grads, params)]
     gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:

@@ -19,12 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
-from .. import tree as tree_util
 from ..device import resolve_device
-from .sharding import P, spec_to_placements
+from .sharding import distribute_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,27 +73,14 @@ def build_mesh(plan: RemeshPlan, device=None):
                       mesh_dim_names=tuple(plan.axes))
 
 
-def _is_array(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray))
-
-
 def reshard_tree(tree, spec_tree, mesh):
     """Place a host tree (tensors or numpy arrays in dicts, lists and
     tuples) onto ``mesh`` as DTensors, each with the spec at the same place
-    of ``spec_tree``.  Used after restore: this is the only placement step
-    of elastic recovery, and ``full_tensor()`` gives each value back."""
-    from torch.distributed.tensor import distribute_tensor
-    specs = iter(tree_util.leaves(spec_tree, lambda s: isinstance(s, P)))
-
-    def place(x):
-        t = torch.as_tensor(x).to(mesh.device_type)
-        return distribute_tensor(t, mesh, spec_to_placements(next(specs),
-                                                             mesh))
-
-    out = tree_util.rebuild(tree, _is_array, place)
-    if next(specs, None) is not None:
-        raise ValueError('spec_tree has more leaves than tree')
-    return out
+    of ``spec_tree`` (``sharding.distribute_tree``).  Used after restore:
+    every survivor restored the same checkpoint, so this is the only
+    placement step of elastic recovery, and ``full_tensor()`` gives each
+    value back."""
+    return distribute_tree(tree, spec_tree, mesh)
 
 
 class ElasticRunner:

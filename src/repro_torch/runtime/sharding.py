@@ -20,14 +20,19 @@ serve every shape.  A spec is the port's own ``P``, a tuple of entries
 (``None``, an axis name, or a tuple of names) equal to the JAX package's
 ``PartitionSpec`` entries.
 
-The port runs one process per rank, every rank the same program on
-replicated values; the bodies that change what is computed (the
-expert-parallel MoE, the compressed all-reduce, GPipe, the sharded frame)
-slice their rank's block and run real collectives (``runtime.spmd``).  The
-layout hooks of ``ShardCtx`` are the counterpart of the JAX package's
+The port runs one process per rank, every rank the same program.
+``distribute_tree`` lays out a tree of values as DTensors by a tree of
+specs, the counterpart of the JAX package's ``device_put`` with a
+``NamedSharding``: the dense and vlm models' parameters, Adam state and
+batch (``models.registry.shard_step_inputs``).  On such a layout the model
+code's ``ShardCtx`` hooks are the counterpart of the JAX package's
 ``with_sharding_constraint``: a plain tensor passes unchanged, a
-``DTensor`` is redistributed to the hook's layout.  The model code does not
-call them yet (DTensor TP and FSDP are later work).
+``DTensor`` is redistributed to the hook's layout, and DTensor's own
+sharding propagation partitions the ops between them as GSPMD does.  The
+other families still run every rank on replicated values; their bodies
+that change what is computed (the expert-parallel MoE, the compressed
+all-reduce, GPipe, the sharded frame) slice their rank's block and run
+real collectives (``runtime.spmd``).
 """
 from __future__ import annotations
 
@@ -177,6 +182,9 @@ class ShardCtx:
     seq_shard_kv: bool = False  # long-context: shard KV sequence over 'data'
 
     def _constrain(self, x, assignments):
+        """``x`` redistributed to the layout that ``assignments`` give its
+        shape on the mesh (``with_sharding_constraint``); a plain tensor,
+        or any tensor without a mesh, passes unchanged."""
         from torch.distributed.tensor import DTensor
         if self.mesh is None or not isinstance(x, DTensor):
             return x
@@ -206,6 +214,39 @@ class ShardCtx:
     def btv(self, x):
         """[batch, seq, vocab] (logits) — vocab over model."""
         return self._constrain(x, [(0, self._baxes()), (2, 'model')])
+
+    def weights(self, p):
+        """A layer's weights (a mapping of name to tensor) with their FSDP
+        shards, those over the batch axes, gathered for its matmuls, the
+        TP shards over ``model`` kept: ZeRO-3's unshard before a layer
+        runs.  No JAX counterpart: GSPMD gathers these weights itself,
+        where DTensor would split the matmul's contraction instead and
+        leave partial sums to reduce (another summation order, which
+        ``flash_attention``'s bfloat16 roundings amplify).  Plain tensors,
+        or no mesh: ``p`` as given."""
+        from torch.distributed.tensor import DTensor, Replicate
+        if self.mesh is None:
+            return p
+        fsdp = [i for i, a in enumerate(all_axes(self.mesh))
+                if a in self._baxes()]
+        out = {}
+        for k, w in p.items():
+            if isinstance(w, DTensor) and any(
+                    w.placements[i].is_shard() for i in fsdp):
+                pl = list(w.placements)
+                for i in fsdp:
+                    pl[i] = Replicate()
+                w = w.redistribute(w.device_mesh, pl)
+            out[k] = w
+        return out
+
+    def dv(self, w):
+        """[d_model, vocab] unembedding — vocab over model, as the ``btv``
+        logits it makes.  No JAX counterpart: GSPMD carries the logits'
+        layout back into their matmul, DTensor propagates forward only, so
+        a replicated (``dp``) matrix would make every rank compute every
+        vocab column and drop most."""
+        return self._constrain(w, [(1, 'model')])
 
     def kv_cache(self, x):
         """[batch, seq, kv_heads, head_dim] — sequence over 'model'; long
@@ -255,6 +296,118 @@ def spec_to_sharding(mesh, tree_specs):
         tree_specs, is_spec,
         (lambda s: None) if mesh is None
         else (lambda s: spec_to_placements(s, mesh)))
+
+
+def distribute_tree(tree, spec_tree, mesh):
+    """Lay out a tree of values (tensors or numpy arrays in dicts, lists and
+    tuples) on ``mesh`` as DTensors, each by the spec at the same place of
+    ``spec_tree``: the JAX package's ``device_put`` with a
+    ``NamedSharding``.  Every rank holds the whole value and keeps its own
+    block, so nothing is sent; each block owns its storage (it is never a
+    view of the whole value).  A numpy array goes to the mesh's device, a
+    tensor on ``meta`` stays there (the dry run's layout)."""
+    from .. import tree as tree_util
+    specs = iter(tree_util.leaves(spec_tree, lambda s: isinstance(s, P)))
+
+    def place(x):
+        spec = next(specs, None)
+        if spec is None:
+            raise ValueError('spec_tree has fewer leaves than tree')
+        return distribute_like(x, mesh, spec_to_placements(spec, mesh))
+
+    out = tree_util.rebuild(tree, _is_value, place)
+    if next(specs, None) is not None:
+        raise ValueError('spec_tree has more leaves than tree')
+    return out
+
+
+def _is_value(x) -> bool:
+    import numpy as np
+    import torch
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def distribute_like(x, mesh, placements):
+    """One value of ``distribute_tree``: ``x`` (a tensor or numpy array
+    that every rank holds whole) as a DTensor with ``placements`` on
+    ``mesh``, each rank keeping its own block in storage of its own."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    t = torch.as_tensor(x)
+    if not t.is_meta:
+        t = t.to(mesh.device_type)
+    t = t.detach()
+    dt = distribute_tensor(t, mesh, placements, src_data_rank=None)
+    local = dt.to_local()
+    if local.untyped_storage()._cdata == t.untyped_storage()._cdata:
+        dt = DTensor.from_local(local.clone(), mesh, dt.placements,
+                                shape=dt.shape, stride=dt.stride())
+    return dt
+
+
+def as_dtensor_like(t, ref, placements=None):
+    """``t``, a plain tensor that every rank holds whole, on the mesh of
+    ``ref`` when ``ref`` is a DTensor: replicated, or by ``placements``
+    (each rank keeps its own block; nothing is sent).  ``t`` itself when
+    ``ref`` is plain.  For the constants the model code makes (positions,
+    masks, rotary frequencies): DTensor ops take no plain tensor of
+    rank >= 1 beside a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    if placements is None:
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+    return distribute_like(t, mesh, placements)
+
+
+def axis_placements(ref, dim: int) -> list:
+    """The placements of a 1-D tensor laid out as the DTensor ``ref``'s
+    dimension ``dim`` (sharded where that dimension is, else
+    replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= ref.ndim
+    return [Shard(0) if isinstance(p, Shard) and p.dim == dim
+            else Replicate() for p in ref.placements]
+
+
+def unshard_dims(x, dims):
+    """``x`` with its tensor dimensions ``dims`` gathered whole on every
+    rank (the other dimensions keep their layout); a plain tensor passes
+    unchanged.  An explicit layout where the next ops would otherwise
+    gather the same dimension once each."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.ndim for d in dims}
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in dims else p
+          for p in x.placements]
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def reduce_partials(x):
+    """``x`` with every pending reduction (``Partial`` placements, masked
+    ones included) carried out, its shards kept; a plain tensor passes
+    unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def to_replicated(x):
+    """``x`` whole on every rank (Shard and Partial placements gathered or
+    reduced), as the JAX package's replicated ``out_shardings``; a plain
+    tensor passes unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate()] * x.device_mesh.ndim
+    return x if tuple(x.placements) == tuple(pl) else x.redistribute(
+        x.device_mesh, pl)
 
 
 def pad_to_multiple(n: int, m: int) -> int:

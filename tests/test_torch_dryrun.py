@@ -12,7 +12,8 @@ CPU.
     on the single mesh of 256 fake ranks: the record has JAX's keys (with
     ``count_s`` for ``lower_s`` / ``compile_s`` and ``n_ops`` for
     ``hlo_chars``), the roofline row JAX's, the argument bytes the
-    parameters plus the moments plus the batch, and ``--table`` prints it;
+    parameters plus the moments plus this rank's block of the batch (the
+    partitioned program), and ``--table`` prints it;
   * the render walk on a small scene (1,000 Gaussians at 64x48): on
     ``meta`` it takes exactly capacity / chunk trips and counts at least
     what the CPU walk counts (as much where every CPU tile runs to its
@@ -176,7 +177,9 @@ def test_dryrun_cli_smollm_two_layers():
     moment_bytes = 2 * sum(p.numel() * 4 for p in params)   # float32 mu, nu
     step_bytes = 4                                          # int32 step
     sh = TSHAPES['train_4k']
-    batch_bytes = 2 * sh.global_batch * sh.seq_len * 4  # tokens, labels
+    # tokens and labels, batch over data (16) and sequence over model (16):
+    # the cell runs the partitioned program, recipe dp replicates the rest
+    batch_bytes = 2 * sh.global_batch * sh.seq_len * 4 // rec['chips']
     mem = rec['memory_analysis']
     assert mem['argument_size_in_bytes'] == (param_bytes + moment_bytes
                                              + step_bytes + batch_bytes)
@@ -184,10 +187,12 @@ def test_dryrun_cli_smollm_two_layers():
     assert mem['alias_size_in_bytes'] == 0
     assert mem['generated_code_size_in_bytes'] == 0
     row = rec['roofline']
-    # a replicated program: every rank runs the whole model on the whole
-    # batch, so the useful share reads about 1 / chips (1.10 / 256 as run:
-    # 6ND counts the input embedding as a matmul, the step gathers it)
-    assert 0.5 < row['useful_ratio'] * rec['chips'] < 2
+    # the partitioned program: each rank computes its block, so the useful
+    # share reads near 1 (1.10 as run: 6ND counts the input embedding as a
+    # matmul, the step gathers it; the replicated program read 1 / chips)
+    assert 0.5 < row['useful_ratio'] < 1.3
+    assert row['note'] == 'n_layers=2; partitioned'
+    assert sum(row['collective_counts'].values()) > 0
     assert rec['cost_analysis']['flops'] > 0 and rec['n_ops'] > 0
 
     table = subprocess.run([sys.executable, '-m', 'repro_torch.launch.dryrun',
