@@ -225,16 +225,16 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     capacity 512, sorted) on the card, counted, with its walk's chunks
     beside the ``meta`` walk's worst case (which must bound its count),
     and timed beside the roofline; (c) ``python -m
-    repro_torch.launch.dryrun`` of smollm-360m at ``train_4k`` and of
-    ``render_1080p`` on the single mesh of 256 fake ranks, each in a
-    subprocess that must exit 0, with its roofline row and count time;
-    (d) a bfloat16 matmul of 8192 cubed and a 4 GiB device copy, the
-    TFLOP/s and TB/s they reach beside the roofline's datasheet peaks.
-    (c)'s smollm ``train_4k`` cell counts the partitioned program: its row
-    must say so, read a ``useful_ratio`` of at least 0.25 and count
-    collectives.  (c)'s subprocesses start before ``mesh_phase`` and run
-    beside it and the tp phase.  No hand-written kernel lies on these
-    paths;
+    repro_torch.launch.dryrun`` of smollm-360m at ``train_4k``, yi-34b
+    at ``decode_32k`` and ``render_1080p`` on the single mesh of 256
+    fake ranks, each in a subprocess that must exit 0, with its roofline
+    row and count time; (d) a bfloat16 matmul of 8192 cubed and a 4 GiB
+    device copy, the TFLOP/s and TB/s they reach beside the roofline's
+    datasheet peaks.  (c)'s two LM cells count the partitioned program:
+    each row must say so, read a ``useful_ratio`` of at least 0.25 and
+    count collectives.
+    (c)'s subprocesses start before ``mesh_phase`` and run beside it and
+    the tp phase.  No hand-written kernel lies on these paths;
 15. tp (``tp_phase``, between the mesh and analysis phases): a one-rank
     NCCL process group and a (data 1, model 1) mesh; smollm-360m at its
     published widths and depth and yi-34b at its published widths cut to
@@ -244,8 +244,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     relative (bit for bit is printed), the layout hooks called on
     DTensors, every parameter a DTensor; each way the step's median of 3
     by CUDA events, the host clock of the call, kernel time and launches
-    from ``torch.profiler`` and the peak memory.  No hand-written kernel
-    lies on this path;
+    from ``torch.profiler`` and the peak memory.  Then each decodes 8
+    rows (caches of 4,096 positions for smollm, 32,768 for yi-34b) 16
+    steps from position 0 through the DTensor layout of
+    ``registry.shard_decode_inputs`` and plainly, from one draw and the
+    same seeded tokens: logits and caches bit for bit, the hooks called
+    on DTensors, every cache a DTensor; each way the step at position 16
+    timed as the train step is.  No hand-written kernel lies on this path;
 16. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -434,11 +439,11 @@ MESH_FRAME, MESH_FRAME_REPS, MESH_FRAME_SIZE = 'render_1080p', 3, None
 # ANALYSIS_COPY_BYTES, ANALYSIS_PEAK_REPS times each
 ANALYSIS_ARCH, ANALYSIS_TIMED_STEPS = 'smollm-360m', 3
 ANALYSIS_FRAME, ANALYSIS_FRAME_SIZE = 'render_720p', None
-ANALYSIS_DRYRUNS = (('smollm-360m', 'train_4k'),
+ANALYSIS_DRYRUNS = (('smollm-360m', 'train_4k'), ('yi-34b', 'decode_32k'),
                     ('lumina-3dgs', 'render_1080p'))
 ANALYSIS_DRYRUN_TIMEOUT_S = 300
 ANALYSIS_MATMUL_N, ANALYSIS_COPY_BYTES, ANALYSIS_PEAK_REPS = 8192, 4 << 30, 10
-# the partitioned train_4k dry run of ANALYSIS_ARCH must read at least this
+# the partitioned LM dry runs of ANALYSIS_DRYRUNS must read at least this
 # useful share (the replicated program read 1 / 256)
 ANALYSIS_MIN_USEFUL = 0.25
 # the tp phase on a one-rank (data 1, model 1) mesh of this card: each of
@@ -449,6 +454,14 @@ ANALYSIS_MIN_USEFUL = 0.25
 # relative, then TP_TIMED_STEPS more each, timed
 TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2))
 TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
+# the tp phase's decode part: each of TP_ARCHS decodes TP_DECODE_ROWS rows
+# against caches of TP_DECODE_SEQ[arch] positions (TP_DECODE_CPU_SEQ in a
+# CPU rehearsal), TP_DECODE_STEPS steps from position 0 through the DTensor
+# layout of registry.shard_decode_inputs and plainly, from one draw (seed
+# 0) and the same seeded tokens: logits and caches bit for bit, then
+# TP_TIMED_STEPS more each at the next position, timed
+TP_DECODE_SEQ = {'smollm-360m': 4096, 'yi-34b': 32768}
+TP_DECODE_CPU_SEQ, TP_DECODE_ROWS, TP_DECODE_STEPS = 32, 8, 16
 DEVICE = 'cuda'
 
 
@@ -4038,17 +4051,22 @@ def tp_host_ms(step, reps: int) -> float:
     return statistics.median(times)
 
 
+def tp_config(pkg, arch: str, layers: int | None):
+    """``arch``'s config in the tp phase: published widths, ``layers``
+    deep where given (reduced in a CPU rehearsal)."""
+    base = pkg.configs.get_config(arch)
+    if not LM_FULL:
+        return base.reduced()
+    return base if layers is None else dataclasses.replace(base,
+                                                           n_layers=layers)
+
+
 def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
     """One config of the tp phase: the step through the DTensor layout
     and plainly from one draw, checked, then timed both ways."""
     import torch
     registry = pkg.registry
-    base = pkg.configs.get_config(arch)
-    if not LM_FULL:
-        cfg = base.reduced()
-    else:
-        cfg = base if layers is None else dataclasses.replace(
-            base, n_layers=layers)
+    cfg = tp_config(pkg, arch, layers)
     cuda = DEVICE == 'cuda'
     plain = registry.init_params(0, cfg, device=DEVICE)
     batch = lm_train_batch(pkg, cfg, 6, TRAIN_BATCH, TRAIN_SEQ, DEVICE)
@@ -4117,12 +4135,100 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
     return out
 
 
+def tp_decode(pkg, mesh, arch: str, layers: int | None) -> dict:
+    """The decode part of one config of the tp phase: TP_DECODE_STEPS
+    steps from position 0 through the DTensor layout and plainly, from one
+    draw and the same tokens, logits and caches checked bit for bit, then
+    the step at the next position timed both ways."""
+    import torch
+    registry = pkg.registry
+    cfg = tp_config(pkg, arch, layers)
+    cuda = DEVICE == 'cuda'
+    seq = TP_DECODE_SEQ[arch] if LM_FULL else TP_DECODE_CPU_SEQ
+    plain = registry.init_params(0, cfg, device=DEVICE)
+    state = registry.init_decode_state(cfg, TP_DECODE_ROWS, seq,
+                                       device=DEVICE)
+    # the layout copies every block (one rank keeps the whole value)
+    model, dstate, _ = registry.shard_decode_inputs(cfg, mesh, plain, state)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (TP_DECODE_STEPS + 1, TP_DECODE_ROWS,
+                                        1), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    progs = {'plain': (plain, state, None, list(toks)),
+             'dtensor': (model, dstate, mesh, [
+                 registry.shard_decode_inputs(cfg, mesh, token=t)[2]
+                 for t in toks])}
+    runs, logits = {}, {}
+    for label, (m, st, ctx_mesh, tk) in progs.items():
+        step = registry.make_decode_step(cfg, registry.make_ctx(ctx_mesh,
+                                                                cfg))
+        held = memory_mark() if cuda else 0
+        calls, hooks = tp_hook_calls(pkg)
+        lgs = []
+        with hooks:
+            for pos in range(TP_DECODE_STEPS):
+                lg, out = step(m, tk[pos], st, pos)
+                if out is not st:
+                    fail(f'tp decode {arch}: the {label} step returned '
+                         'another state than it was given')
+                lgs.append(lg.full_tensor() if ctx_mesh else lg)
+        logits[label] = torch.stack(lgs)
+        runs[label] = {'hook_calls': len(calls), 'step': step,
+                       'peak_bytes': peak_since(held) if cuda else None}
+    got, want = runs['dtensor'], runs['plain']
+    same_logits = torch.equal(logits['dtensor'], logits['plain'])
+    same_caches = [torch.equal(d.to_local(), c)
+                   for d, c in zip(dstate, state)]
+    for label, (m, st, _, tk) in progs.items():
+        step = runs[label].pop('step')
+
+        def one(step=step, m=m, st=st, t=tk[-1]):
+            step(m, t, st, TP_DECODE_STEPS)
+
+        runs[label].update(step_ms=time_ms(one, TP_TIMED_STEPS),
+                           host_ms=tp_host_ms(one, TP_TIMED_STEPS),
+                           device_busy=lm_device_busy(one, 1) if cuda
+                           else None)
+    out = {'arch': arch, 'n_layers': cfg.n_layers, 'dtype': cfg.dtype,
+           'rows': TP_DECODE_ROWS, 'cache_len': seq,
+           'steps': TP_DECODE_STEPS, **runs,
+           'logits_max_abs': float((logits['dtensor'] - logits['plain'])
+                                   .abs().max()),
+           'bit_for_bit': same_logits and all(same_caches),
+           'cache_placements': sorted({str(tuple(c.placements))
+                                       for c in dstate})}
+    print(f'tp decode {arch} ({cfg.n_layers} layers, {TP_DECODE_ROWS} rows, '
+          f'cache {seq}) through the DTensor layout on (data 1, model 1) vs '
+          f'plainly, {TP_DECODE_STEPS} steps from position 0 (step_ms: '
+          f'{"CUDA events" if cuda else "host"}, host_ms: host clock of the '
+          f'call, medians of {TP_TIMED_STEPS} at position '
+          f'{TP_DECODE_STEPS}; launches and kernel_ms: torch.profiler, one '
+          'step; peak_bytes: above what was held as the checked steps '
+          'began, both models held): ' + json.dumps(out), flush=True)
+    if not same_logits or not all(same_caches):
+        fail(f'tp decode {arch}: the DTensor decode differs from the plain '
+             f'decode (logits equal: {same_logits}, caches equal: '
+             f'{same_caches})')
+    if got['hook_calls'] == 0 or want['hook_calls'] != 0:
+        fail(f'tp decode {arch}: layout hooks on DTensors '
+             f'{got["hook_calls"]} times through the layout (want some), '
+             f'{want["hook_calls"]} plainly (want 0)')
+    if not all(isinstance(c, torch.distributed.tensor.DTensor)
+               for c in dstate):
+        fail(f'tp decode {arch}: a cache of the layout is not a DTensor')
+    del plain, model, state, dstate, progs
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_phase(pkg) -> dict:
     """The partitioned LM program on this card: a one-rank process group
     (NCCL; gloo on the CPU) and a (data 1, model 1) mesh, then each of
-    TP_ARCHS stepped through the DTensor layout and plainly.  NCCL takes
-    one rank a card, so the layouts that split work need more cards
-    (tests/test_torch_mesh_tp.py holds them on 4 CPU ranks)."""
+    TP_ARCHS stepped through the DTensor layout and plainly, its train
+    step and its decode.  NCCL takes one rank a card, so the layouts that
+    split work need more cards (tests/test_torch_mesh_tp.py and
+    tests/test_torch_mesh_decode.py hold them on 4 CPU ranks)."""
     import torch.distributed as dist
     import torch.distributed.tensor  # noqa: F401  (DTensor for tp_train)
     t_phase = time.perf_counter()
@@ -4130,7 +4236,8 @@ def tp_phase(pkg) -> dict:
                             world_size=1, store=dist.HashStore())
     try:
         mesh = pkg.mesh.make_test_mesh((1, 1), device=DEVICE)
-        out = {arch: tp_train(pkg, mesh, arch, layers)
+        out = {arch: {'train': tp_train(pkg, mesh, arch, layers),
+                      'decode': tp_decode(pkg, mesh, arch, layers)}
                for arch, layers in TP_ARCHS}
     finally:
         dist.destroy_process_group()
@@ -4329,7 +4436,7 @@ def analysis_dryruns_finish(pkg, procs) -> list:
               flush=True)
         print('  ' + pkg.roofline.fmt_table([rec['roofline']]).replace(
             '\n', '\n  '), flush=True)
-        if (arch, shape) == (ANALYSIS_ARCH, 'train_4k') and not (
+        if arch != 'lumina-3dgs' and not (
                 'partitioned' in rec['roofline']['note']
                 and rec['roofline']['useful_ratio'] >= ANALYSIS_MIN_USEFUL
                 and sum(rec['roofline']['collective_counts'].values()) > 0):

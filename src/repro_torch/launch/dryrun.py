@@ -22,18 +22,19 @@ records:
     (``analysis.roofline``).
 
 The dense and vlm cells (smollm-360m, yi-34b, command-r-35b,
-nemotron-4-15b, chameleon-34b) at the train and prefill shapes run the
-partitioned program: parameters, Adam state and batch are laid out as
-DTensors by the recipe's specs (``registry.shard_step_inputs``, the JAX
+nemotron-4-15b, chameleon-34b) at the train, prefill and decode shapes
+run the partitioned program: parameters, Adam state, batch and decode
+state are laid out as DTensors by the recipe's specs
+(``registry.shard_step_inputs`` and ``shard_decode_inputs``, the JAX
 package's ``in_shardings``), the model code's ``ShardCtx`` hooks
 redistribute its activations, and each rank computes and holds its own
-block.  The other cells (decode shapes, the moe, encdec, ssm and hybrid
-families) still run the replicated program: every rank runs the whole
-model on the whole batch, and only the expert-parallel MoE body,
-``psum_compressed`` and the sharded frame split their work, so their
-``useful_ratio`` reads about 1 / chips.  Each roofline row's ``note``
-names the program it counted (after the overrides, if any).  The counts
-are what one rank really runs.
+block (a decode rank its rows' block of the K/V caches' sequence).  The
+other cells (the moe, encdec, ssm and hybrid families) still run the
+replicated program: every rank runs the whole model on the whole batch,
+and only the expert-parallel MoE body, ``psum_compressed`` and the
+sharded frame split their work, so their ``useful_ratio`` reads about 1 /
+chips.  Each roofline row's ``note`` names the program it counted (after
+the overrides, if any).  The counts are what one rank really runs.
 
 Run one cell:     python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh single
 Run everything:   python -m repro_torch.launch.dryrun --all   (subprocess per cell)
@@ -123,9 +124,8 @@ def init_fake_world(world_size: int) -> None:
 
 def partitioned(cfg, shape) -> bool:
     """Whether the cell runs the partitioned program (dense and vlm at
-    the train and prefill shapes)."""
-    return cfg.family in ('dense', 'vlm') and shape.kind in ('train',
-                                                             'prefill')
+    the train, prefill and decode shapes; not the long-context layout)."""
+    return cfg.family in ('dense', 'vlm') and shape.name != 'long_500k'
 
 
 def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
@@ -137,22 +137,29 @@ def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
 
     params = registry.abstract_params(cfg, tp)
     batch = registry.input_specs(cfg, shape)
-    if partitioned(cfg, shape) and mesh is not None:
+    split = partitioned(cfg, shape) and mesh is not None
+
+    if shape.kind == 'decode':
+        # one new token at the last position of a full cache
+        state = registry.abstract_decode_state(
+            cfg, shape.global_batch, shape.seq_len, tp)
+        token = batch['token']
+        if split:
+            params, state, token = registry.shard_decode_inputs(
+                cfg, mesh, params, state, token)
+        fn = registry.make_decode_step(cfg, ctx)
+        return fn, (params, token, state, shape.seq_len - 1), model_flops(
+            cfg, shape)
+
+    if split:
         params, _, batch = registry.shard_step_inputs(cfg, mesh, params,
                                                       batch=batch)
-
     if shape.kind == 'train':
         step, acfg = registry.make_train_step(cfg, ctx)
         opt_state = adam.init(list(params.parameters()), acfg)
         fn, args = step, (params, opt_state, batch)
-    elif shape.kind == 'prefill':
+    else:
         fn, args = registry.make_prefill(cfg, ctx), (params, batch)
-    else:  # decode: one new token at the last position of a full cache
-        state = registry.abstract_decode_state(
-            cfg, shape.global_batch, shape.seq_len, tp)
-        fn = registry.make_decode_step(cfg, ctx)
-        args = (params, batch['token'], state, shape.seq_len - 1)
-
     return fn, args, model_flops(cfg, shape)
 
 

@@ -14,7 +14,8 @@ streams are not.
 
 Partitioning: every function that the JAX package gives a ``ShardCtx``
 takes one as ``ctx`` (none: no layout) and calls its layout hooks where
-the JAX package does.  On DTensor inputs (``registry.shard_step_inputs``)
+the JAX package does.  On DTensor inputs (``registry.shard_step_inputs``,
+``registry.shard_decode_inputs``)
 the ops between the hooks run partitioned by DTensor's sharding
 propagation.  Where DTensor has no strategy or would mix a plain tensor
 into a DTensor op, the layout is explicit:
@@ -31,6 +32,17 @@ into a DTensor op, the layout is explicit:
   * ``flash_attention`` runs on each rank's block (``attend``): the
     ``bthd`` layout never shards the sequence or ``head_dim``, so each
     (batch, head) block attends alone, as GSPMD keeps the JAX scan local;
+  * the decode step's K/V write at ``pos`` (``write_at``) runs on each
+    rank's block of a sequence-sharded cache (``local_map``): only the
+    rank whose block holds the position writes, in place;
+  * the decode attention (``decode_attend``) never gathers the cache: q
+    is laid out with the cache's batch and its heads whole, each rank
+    scores its block of the sequence masked by global positions
+    (``local_map``; ``torch.arange`` would compare local indices), and
+    the softmax is the flash-decoding combine, a max and two sums reduced
+    across ranks where they are made (``torch.softmax`` on a sharded
+    sequence would gather it); the weighted V is a ``local_map`` einsum
+    with a pending sum;
   * the unembedding is laid out with its vocab over ``model`` (``ctx.dv``)
     before the logits' matmul, as GSPMD would carry ``btv`` back into it;
   * ``chunked_ce_loss`` gathers the sequence of the final states and the
@@ -52,8 +64,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime.sharding import (ShardCtx, as_dtensor_like, axis_placements,
-                                padded_heads, reduce_partials, to_replicated,
-                                unshard_dims)
+                                local_range, padded_heads, reduce_partials,
+                                to_replicated, unshard_dims)
 
 NEG_INF = -1e30      # the masked-score fill of the JAX package
 NO_CTX = ShardCtx()  # no mesh: every layout hook passes its input unchanged
@@ -341,35 +353,123 @@ def attention_prefill(p, x, cfg, positions, ctx: ShardCtx = NO_CTX):
     return y, (ctx.kv_cache(k), ctx.kv_cache(v))
 
 
+def write_at(cache: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
+    """``cache[:, at] = new[:, 0]`` in place: cache [B, T, ...], new [B, 1,
+    ...], ``at`` a global position.  On DTensors, on each rank's block
+    (``local_map``, ``new`` laid out as the cache with its sequence whole):
+    the rank whose block of the sequence holds ``at`` writes at ``at -
+    start``, the others write nothing.  The write reaches the cache's
+    storage, so a view of a stacked cache writes into the stack."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(cache, DTensor):
+        cache[:, at] = new[:, 0]
+        return cache
+    from torch.distributed.tensor.experimental import local_map
+    start, stop = local_range(cache, 1)
+    pl = list(cache.placements)
+    new_pl = [Replicate() if c.is_shard(1) else c for c in pl]
+    if tuple(new.placements) != tuple(new_pl):
+        new = new.redistribute(cache.device_mesh, new_pl)
+
+    def write(c, n):
+        if start <= at < stop:
+            c[:, at - start] = n[:, 0]
+        return c
+
+    return local_map(write, out_placements=pl, in_placements=(pl, new_pl),
+                     device_mesh=cache.device_mesh)(cache, new)
+
+
+def _decode_scores(q, kr, pos: int, start: int = 0) -> torch.Tensor:
+    """float32 scores [B, Hp, 1, T] of q [B, 1, Hp, hd] against kr [B, T,
+    Hp, hd] holding global positions ``start``.., those after ``pos`` at
+    ``NEG_INF``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sc = torch.einsum('bqhd,bkhd->bhqk', q.float() * scale, kr.float())
+    kpos = torch.arange(start, start + kr.shape[1], device=q.device)
+    return torch.where(kpos[None, None, None, :] <= pos, sc, NEG_INF)
+
+
+def _decode_softmax(q, kr, vr, pos: int) -> torch.Tensor:
+    """The whole sequence's float32 attention [B, 1, Hp, hd]."""
+    w = torch.softmax(_decode_scores(q, kr, pos), dim=-1)
+    return torch.einsum('bhqk,bkhd->bqhd', w, vr.float())
+
+
+def decode_attend(q, kr, vr, pos: int) -> torch.Tensor:
+    """float32 attention [B, 1, Hp, hd] of one query q [B, 1, Hp, hd] over
+    kr, vr [B, T, Hp, hd] at positions <= ``pos``.
+
+    On DTensors the cache is never gathered.  q is laid out with the
+    cache's batch and its heads whole.  Where the cache's sequence is whole
+    on each rank, each rank runs the plain softmax on its rows
+    (``local_map``).  Where it is sharded, the flash-decoding combine: each
+    rank scores its block, masked by global positions; the max is reduced
+    across ranks, the weights exponentiated; the weights' sum and the
+    weighted V are summed across ranks and divided once.  Raises on a
+    cache whose heads or ``head_dim`` are sharded."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(kr, DTensor):
+        return _decode_softmax(q, kr, vr, pos)
+    from torch.distributed.tensor.experimental import local_map
+    mesh, kv_pl = kr.device_mesh, list(kr.placements)
+    if tuple(vr.placements) != tuple(kv_pl) or any(
+            c.is_shard(2) or c.is_shard(3) for c in kv_pl):
+        raise ValueError('decode_attend needs k and v in one layout that '
+                         'shards only batch and sequence, got '
+                         f'{tuple(kv_pl)} and {tuple(vr.placements)}')
+    q_pl = [Replicate() if c.is_shard(1) else c for c in kv_pl]
+    if tuple(q.placements) != tuple(q_pl):
+        q = q.redistribute(mesh, q_pl)
+    if q_pl == kv_pl:        # the sequence whole on each rank
+        return local_map(lambda q, k, v: _decode_softmax(q, k, v, pos),
+                         out_placements=q_pl, in_placements=(q_pl, kv_pl,
+                                                             kv_pl),
+                         device_mesh=mesh)(q, kr, vr)
+    start, _ = local_range(kr, 1)
+    sc_pl = [Shard(3) if c.is_shard(1) else c for c in kv_pl]
+    sc = local_map(lambda q, k: _decode_scores(q, k, pos, start),
+                   out_placements=sc_pl, in_placements=(q_pl, kv_pl),
+                   device_mesh=mesh)(q, kr)                  # [B, Hp, 1, T]
+    m = reduce_partials(sc.amax(dim=-1, keepdim=True))
+    w = torch.exp(sc - m)
+    den = reduce_partials(w.sum(dim=-1))                      # [B, Hp, 1]
+    o_pl = [Partial() if c.is_shard(1) else c for c in kv_pl]
+    num = local_map(lambda w, v: torch.einsum('bhqk,bkhd->bqhd', w,
+                                              v.float()),
+                    out_placements=o_pl, in_placements=(sc_pl, kv_pl),
+                    device_mesh=mesh)(w, vr)
+    return reduce_partials(num) / den.transpose(1, 2)[..., None]
+
+
 def attention_decode(p, x, cfg, cache, pos: int, ctx: ShardCtx = NO_CTX):
     """One-token decode: x [B, 1, D], cache (k, v) [B, T, Hkv, hd], ``pos``
     the position written.
 
     The new token's k/v are written in place at ``pos`` for every row of
-    the batch (a start past the end clamps to the last position, as XLA's
-    ``dynamic_update_slice`` does); attention reads positions <= ``pos``.
-    Scores and softmax are float32.  Returns (y [B, 1, D], cache).
+    the batch (``write_at``; a start past the end clamps to the last
+    position, as XLA's ``dynamic_update_slice`` does); attention reads
+    positions <= ``pos`` (``decode_attend``).  Scores and softmax are
+    float32.  Returns (y [B, 1, D], cache).  x and the cache are both
+    DTensors (``registry.shard_decode_inputs``) or both plain.
     """
     b = x.shape[0]
     hd = cfg.resolved_head_dim()
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new, hp, _ = _qkv(p, x, cfg, positions, ctx)
     k_cache, v_cache = cache
-    t = k_cache.shape[1]
-    at = min(max(pos, 0), t - 1)
-    k_cache[:, at] = k_new[:, 0]
-    v_cache[:, at] = v_new[:, 0]
-    k_cache, v_cache = ctx.kv_cache(k_cache), ctx.kv_cache(v_cache)
+    if hasattr(x, 'placements') != hasattr(k_cache, 'placements'):
+        raise ValueError('attention_decode takes x and the cache both as '
+                         'DTensors or both plain')
+    positions = torch.full((b,), pos, dtype=torch.int32, device=x.device)
+    if hasattr(x, 'placements'):      # each rank makes its rows' block
+        positions = as_dtensor_like(positions, x, axis_placements(x, 0))
+    q, k_new, v_new, hp, _ = _qkv(p, x, cfg, positions[:, None], ctx)
+    at = min(max(pos, 0), k_cache.shape[1] - 1)
+    k_cache = ctx.kv_cache(write_at(k_cache, k_new, at))
+    v_cache = ctx.kv_cache(write_at(v_cache, v_new, at))
 
     kr = repeat_kv(k_cache, hp, cfg.n_heads)       # [B, T, Hp, hd]
     vr = repeat_kv(v_cache, hp, cfg.n_heads)
-    scale = 1.0 / math.sqrt(hd)
-    sc = torch.einsum('bqhd,bkhd->bhqk', q.float() * scale, kr.float())
-    valid = torch.arange(t, device=x.device)[None, None, None, :] <= pos
-    sc = torch.where(valid, sc, NEG_INF)
-    w = torch.softmax(sc, dim=-1)
-    out = torch.einsum('bhqk,bkhd->bqhd', w, vr.float()).to(x.dtype)
-    out = _mask_heads(out, cfg.n_heads)
+    out = _mask_heads(decode_attend(q, kr, vr, pos).to(x.dtype), cfg.n_heads)
     return ctx.btd(merge(out.reshape(b, 1, hp * hd), p['wo'])), (k_cache,
                                                                   v_cache)
 

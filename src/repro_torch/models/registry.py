@@ -14,10 +14,12 @@ with the JAX package's branch for each family: ``dense`` and ``vlm``
 partition specs:
 ``param_specs`` (by ``named_parameters`` name), ``batch_shardings`` and
 ``decode_state_specs``.  ``shard_step_inputs`` lays out a model's
-parameters, its Adam state and a batch as DTensors by those specs, as the
-JAX package's dry run gives them to ``jax.jit`` as ``in_shardings``; the
-train and prefill steps of the dense and vlm families run partitioned on
-such a layout, and as before on plain tensors.
+parameters, its Adam state and a batch as DTensors by those specs, and
+``shard_decode_inputs`` the parameters, the decode state and the token,
+as the JAX package's dry run gives them to ``jax.jit`` as
+``in_shardings``; the train, prefill and decode steps of the dense and
+vlm families run partitioned on such a layout, and as before on plain
+tensors.
 """
 from __future__ import annotations
 
@@ -360,6 +362,31 @@ def shard_step_inputs(cfg: ModelConfig, mesh, params, opt_state=None,
         batch = distribute_tree(batch, batch_shardings(cfg, mesh, batch),
                                 mesh)
     return params, opt_state, batch
+
+
+def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
+                        token=None):
+    """The decode step's inputs laid out on ``mesh`` as DTensors, the JAX
+    package's ``in_shardings`` for it: the model ``params`` as
+    ``shard_step_inputs`` lays it out, the stacked K/V caches [L, B, T,
+    Hkv, hd] by ``decode_state_specs`` (batch over pod x data, sequence
+    over 'model'), the token [B, 1] by ``batch_shardings``; ``None``
+    passes through.  ``pos`` stays a Python int (JAX's replicated scalar).
+    Each rank holds the whole values and keeps its own block, in storage
+    of its own.  Only the dense and vlm decode steps run on this layout;
+    the other families raise.  Returns ``(params, state, token)``."""
+    if cfg.family not in ('dense', 'vlm'):
+        raise ValueError(f'{cfg.name}: the {cfg.family} decode step runs '
+                         'replicated; only dense and vlm run partitioned')
+    if params is not None:
+        params = shard_step_inputs(cfg, mesh, params)[0]
+    if state is not None:
+        state = distribute_tree(state, decode_state_specs(
+            cfg, state, mesh, long_context=False), mesh)
+    if token is not None:
+        token = distribute_tree(token, batch_shardings(cfg, mesh, token),
+                                mesh)
+    return params, state, token
 
 
 def decode_state_specs(cfg: ModelConfig, state_tree, mesh, *,

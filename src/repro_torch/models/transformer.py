@@ -13,7 +13,10 @@ The serving state is one preallocated K/V pair [L, B, T, Hkv, hd];
 Every entry point takes the ``ShardCtx`` (``ctx``, none by default) and
 calls its hooks where the JAX package's ``transformer`` does, its layers
 too: on parameters and a batch laid out as DTensors
-(``registry.shard_step_inputs``) the model runs partitioned.
+(``registry.shard_step_inputs``) the model runs partitioned, and so does
+the decode step on parameters, caches and token laid out by
+``registry.shard_decode_inputs`` (each layer's cache ``k_all[i]`` a view
+of the stack's blocks, so the writes land in the stack).
 """
 from __future__ import annotations
 

@@ -23,9 +23,10 @@ serve every shape.  A spec is the port's own ``P``, a tuple of entries
 The port runs one process per rank, every rank the same program.
 ``distribute_tree`` lays out a tree of values as DTensors by a tree of
 specs, the counterpart of the JAX package's ``device_put`` with a
-``NamedSharding``: the dense and vlm models' parameters, Adam state and
-batch (``models.registry.shard_step_inputs``).  On such a layout the model
-code's ``ShardCtx`` hooks are the counterpart of the JAX package's
+``NamedSharding``: the dense and vlm models' parameters, Adam state,
+batch and decode state (``models.registry.shard_step_inputs`` and
+``shard_decode_inputs``).  On such a layout the model code's
+``ShardCtx`` hooks are the counterpart of the JAX package's
 ``with_sharding_constraint``: a plain tensor passes unchanged, a
 ``DTensor`` is redistributed to the hook's layout, and DTensor's own
 sharding propagation partitions the ops between them as GSPMD does.  The
@@ -369,6 +370,26 @@ def axis_placements(ref, dim: int) -> list:
     dim %= ref.ndim
     return [Shard(0) if isinstance(p, Shard) and p.dim == dim
             else Replicate() for p in ref.placements]
+
+
+def local_range(x, dim: int) -> tuple:
+    """This rank's ``[start, stop)`` along dimension ``dim`` of ``x``: of
+    a DTensor, the global positions of its block (DTensor's split, as
+    ``torch.chunk``'s, nested in the mesh's order); of a plain tensor, or
+    where no mesh dimension shards ``dim``, the whole range."""
+    from torch.distributed.tensor import DTensor, Shard
+    dim %= x.ndim
+    start, size = 0, x.shape[dim]
+    if not isinstance(x, DTensor):
+        return start, size
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            start, size = start + lo, min(chunk, size - lo)
+    return start, start + size
 
 
 def unshard_dims(x, dims):

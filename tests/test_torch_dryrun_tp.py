@@ -16,6 +16,16 @@ CPU with ``fake`` process groups (nothing is sent, every tensor on
     parameter), the replicated step and ``batch_shardings`` give one rank;
     its per-rank matmul FLOPs times 256 lie within [0.95, 1.3] of the
     same step's count with no mesh on the same padded (tp 16) parameters.
+  * ``run_cell('yi-34b', 'decode_32k', 'single', opt='n_layers=2')``: its
+    argument bytes are exactly the blocks that ``param_specs``,
+    ``decode_state_specs`` (K and V [2, 8, 2048, 8, 128] in bfloat16,
+    67,108,864 B each) and ``batch_shardings`` give one rank; its counted
+    collective bytes a rank stay below what gathering one layer's K and V
+    sequence whole would move (1.07e9 B), so no rank gathers the cache;
+    its note reads ``partitioned``.
+  * ``layers.decode_attend`` raises on a cache whose heads are sharded,
+    and ``registry.shard_decode_inputs`` on the families whose decode
+    runs replicated.
 """
 import dataclasses
 import math
@@ -30,7 +40,7 @@ from repro_torch.analysis import op_count
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import dryrun
-from repro_torch.models import registry
+from repro_torch.models import layers, registry
 from repro_torch.optim import adam
 from repro_torch.runtime.sharding import axes_size, distribute_like
 from torch_serve_parity import one_torch_thread  # noqa: F401
@@ -112,6 +122,23 @@ def test_dtensor_all_to_all_on_a_cuda_mesh(fake4):
     assert got['flops'] == 0
 
 
+def test_decode_attend_refuses_a_head_sharded_cache(fake4):
+    """The decode attention combines across ranks only over a sharded
+    sequence; a cache whose heads are sharded raises, never gathers."""
+    mesh = init_device_mesh('cpu', (2, 2), mesh_dim_names=AXES)
+    q = meta(mesh, (4, 1, 4, 32), [Shard(0), Replicate()])
+    kv = meta(mesh, (4, 16, 4, 32), [Shard(0), Shard(2)])
+    with pytest.raises(ValueError, match='shards only batch and sequence'):
+        layers.decode_attend(q, kv, kv, 3)
+
+
+def test_only_dense_and_vlm_decode_inputs_are_laid_out():
+    for arch in ('granite-moe-1b-a400m', 'whisper-base', 'xlstm-1.3b',
+                 'zamba2-1.2b'):
+        with pytest.raises(ValueError, match='runs replicated'):
+            registry.shard_decode_inputs(get_config(arch), None)
+
+
 class Mesh:
     """Shape-only stand-in of the production mesh for the spec rules."""
     shape = {'data': 16, 'model': 16}
@@ -125,8 +152,9 @@ def _block_bytes(shape, spec, itemsize: int) -> int:
     return math.prod(dims) * itemsize
 
 
-@pytest.fixture(scope='module')
-def yi_cell(tmp_path_factory):
+def counted_cell(shape: str, out_dir) -> tuple:
+    """The record of yi-34b's ``shape`` cell cut to 2 layers on the
+    single mesh, and its op counter's counts."""
     counters = []
 
     class Kept(op_count.OpCounter):
@@ -137,12 +165,21 @@ def yi_cell(tmp_path_factory):
     real = dryrun.op_count.OpCounter
     dryrun.op_count.OpCounter = Kept
     try:
-        rec = dryrun.run_cell('yi-34b', 'train_4k', 'single',
-                              opt='n_layers=2',
-                              out_dir=tmp_path_factory.mktemp('dryrun'))
+        rec = dryrun.run_cell('yi-34b', shape, 'single', opt='n_layers=2',
+                              out_dir=out_dir)
     finally:
         dryrun.op_count.OpCounter = real
     return rec, counters[0].counts()
+
+
+@pytest.fixture(scope='module')
+def yi_cell(tmp_path_factory):
+    return counted_cell('train_4k', tmp_path_factory.mktemp('dryrun'))
+
+
+@pytest.fixture(scope='module')
+def yi_decode_cell(tmp_path_factory):
+    return counted_cell('decode_32k', tmp_path_factory.mktemp('dryrun'))
 
 
 def test_yi_argument_bytes_are_the_specs_blocks(yi_cell):
@@ -173,3 +210,38 @@ def test_yi_matmul_flops_divide_by_the_mesh(yi_cell):
     ratio = counts['dot_flops'] * 256 / whole['dot_flops']
     assert 0.95 <= ratio <= 1.3, ratio
     assert counts['collective_bytes'] > 0
+
+
+def test_yi_decode_argument_bytes_are_the_specs_blocks(yi_decode_cell):
+    rec, _ = yi_decode_cell
+    cfg = dataclasses.replace(get_config('yi-34b'), n_layers=2)
+    params = registry.abstract_params(cfg, TP)
+    specs = registry.param_specs(cfg, params, Mesh)
+    want = sum(_block_bytes(p.shape, specs[name], p.element_size())
+               for name, p in params.named_parameters())
+    sh = SHAPES['decode_32k']
+    state = registry.abstract_decode_state(cfg, sh.global_batch, sh.seq_len,
+                                           TP)
+    s_specs = registry.decode_state_specs(cfg, state, Mesh,
+                                          long_context=False)
+    cache = [_block_bytes(c.shape, spec, c.element_size())
+             for c, spec in zip(state, s_specs)]
+    assert cache == [2 * 8 * 2048 * 8 * 128 * 2] * 2 == [67_108_864] * 2
+    token = registry.input_specs(cfg, sh)['token']
+    want += sum(cache) + _block_bytes(
+        token.shape, registry.batch_shardings(cfg, Mesh, token), 4)
+    assert rec['memory_analysis']['argument_size_in_bytes'] == want
+    assert rec['roofline']['note'] == 'n_layers=2; partitioned'
+
+
+def test_yi_decode_gathers_no_cache(yi_decode_cell):
+    _, counts = yi_decode_cell
+    cfg = get_config('yi-34b')
+    sh = SHAPES['decode_32k']
+    # one layer's K and V, its rows' block (batch over data) with the
+    # sequence whole, in bfloat16
+    layer_kv = (2 * sh.global_batch // Mesh.shape['data'] * sh.seq_len
+                * cfg.n_kv_heads * cfg.resolved_head_dim() * 2)
+    assert layer_kv == 1_073_741_824
+    assert 0 < counts['collective_bytes'] < layer_kv
+    assert counts['collective_counts']['all-reduce'] > 0
