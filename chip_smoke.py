@@ -451,8 +451,11 @@ ANALYSIS_MIN_USEFUL = 0.25
 # widths, bfloat16, steps TRAIN_BATCH x TRAIN_SEQ through the DTensor layout
 # of registry.shard_step_inputs and plainly, from the same draw (seed 0):
 # the first step's loss within TP_LOSS_REL and grad norm within TP_NORM_REL
-# relative, then TP_TIMED_STEPS more each, timed
-TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2))
+# relative, then TP_TIMED_STEPS more each, timed.  An moe arch's DTensor
+# step takes the expert-parallel body (a one-rank all_to_all) in every MoE
+# layer, where the plain step takes the local path
+TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2),
+            ('granite-moe-1b-a400m', None))
 TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 # the tp phase's decode part: each of TP_ARCHS decodes TP_DECODE_ROWS rows
 # against caches of TP_DECODE_SEQ[arch] positions (TP_DECODE_CPU_SEQ in a
@@ -460,7 +463,8 @@ TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 # layout of registry.shard_decode_inputs and plainly, from one draw (seed
 # 0) and the same seeded tokens: logits and caches bit for bit, then
 # TP_TIMED_STEPS more each at the next position, timed
-TP_DECODE_SEQ = {'smollm-360m': 4096, 'yi-34b': 32768}
+TP_DECODE_SEQ = {'smollm-360m': 4096, 'yi-34b': 32768,
+                 'granite-moe-1b-a400m': 4096}
 TP_DECODE_CPU_SEQ, TP_DECODE_ROWS, TP_DECODE_STEPS = 32, 8, 16
 DEVICE = 'cuda'
 
@@ -4035,6 +4039,20 @@ def tp_hook_calls(pkg):
                           wrap)
 
 
+def tp_ep_calls(pkg):
+    """Patch ``moe._moe_ffn_ep`` to record the MoE parameters of each call
+    (a list that grows by one a call)."""
+    calls = []
+
+    def wrap(_, fn):
+        def body(p, *a, **kw):
+            calls.append(p)
+            return fn(p, *a, **kw)
+        return body
+
+    return calls, patched([(pkg.moe, '_moe_ffn_ep', 'ep')], wrap)
+
+
 def tp_host_ms(step, reps: int) -> float:
     """Median host clock of one ``step()`` call (after a sync, none after):
     the time the host takes to issue the step."""
@@ -4082,7 +4100,8 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
             cfg, registry.make_ctx(ctx_mesh, cfg))
         state = {'opt': pkg.adam.init(list(m.parameters()), acfg)}
         calls, hooks = tp_hook_calls(pkg)
-        with hooks:
+        ep, ep_calls = tp_ep_calls(pkg)
+        with hooks, ep_calls:
             _, state['opt'], metrics = step_fn(m, state['opt'], b)
         loss = metrics['loss']
         gnorm = metrics['grad_norm']
@@ -4094,7 +4113,8 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
 
         runs[label] = {
             'loss': float(loss), 'grad_norm': float(gnorm),
-            'hook_calls': len(calls),
+            'hook_calls': len(calls), 'ep_calls': len(ep),
+            'ep_layers': len({id(p) for p in ep}),
             'step_ms': time_ms(step, TP_TIMED_STEPS),
             'host_ms': tp_host_ms(step, TP_TIMED_STEPS),
             'device_busy': lm_device_busy(step, 1) if cuda else None,
@@ -4129,6 +4149,13 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
     if not all(isinstance(p, torch.distributed.tensor.DTensor)
                for p in model.parameters()):
         fail(f'tp {arch}: a parameter of the layout is not a DTensor')
+    # every MoE layer's forward takes the EP body through the layout (remat's
+    # recompute enters it again), none plainly
+    n_moe = cfg.n_layers // cfg.moe_every if cfg.family == 'moe' else 0
+    if got['ep_layers'] != n_moe or want['ep_calls'] != 0:
+        fail(f'tp {arch}: the expert-parallel body ran in '
+             f'{got["ep_layers"]} MoE layers through the layout (want '
+             f'{n_moe}), {want["ep_calls"]} times plainly (want 0)')
     del plain, model, batch, dbatch
     if cuda:
         torch.cuda.empty_cache()
@@ -4227,8 +4254,9 @@ def tp_phase(pkg) -> dict:
     (NCCL; gloo on the CPU) and a (data 1, model 1) mesh, then each of
     TP_ARCHS stepped through the DTensor layout and plainly, its train
     step and its decode.  NCCL takes one rank a card, so the layouts that
-    split work need more cards (tests/test_torch_mesh_tp.py and
-    tests/test_torch_mesh_decode.py hold them on 4 CPU ranks)."""
+    split work need more cards (tests/test_torch_mesh_tp.py,
+    tests/test_torch_mesh_decode.py and tests/test_torch_mesh_ep.py hold
+    them on 4 CPU ranks)."""
     import torch.distributed as dist
     import torch.distributed.tensor  # noqa: F401  (DTensor for tp_train)
     t_phase = time.perf_counter()

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..runtime.sharding import ShardCtx
 from . import layers as L
 
 
@@ -40,6 +41,11 @@ class ParamTree(nn.Module):
     def get(self, key: str, default=None):
         return self[key] if key in self else default
 
+    def items(self):
+        """The (name, tensor) pairs of the tensors at this node (a
+        layer's weights, as ``ShardCtx.weights`` reads a mapping)."""
+        return self._parameters.items()
+
 
 class LM(ParamTree):
     """A family's model: its parameter tree and its config, with the
@@ -49,8 +55,9 @@ class LM(ParamTree):
         super().__init__(params)
         self.cfg = cfg
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return L.logits(self.tok, x, self.cfg)
+    def logits(self, x: torch.Tensor,
+               ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
+        return L.logits(self.tok, x, self.cfg, ctx)
 
 
 def positions(b: int, s: int, device) -> torch.Tensor:

@@ -17,8 +17,10 @@ partition specs:
 parameters, its Adam state and a batch as DTensors by those specs, and
 ``shard_decode_inputs`` the parameters, the decode state and the token,
 as the JAX package's dry run gives them to ``jax.jit`` as
-``in_shardings``; the train, prefill and decode steps of the dense and
-vlm families run partitioned on such a layout, and as before on plain
+``in_shardings``; the train, prefill and decode steps of the dense, vlm
+and moe families run partitioned on such a layout (moe's under the
+recipe ``ep``: the experts over ``model`` and their rows over ``data``,
+the dense submodules by the ``tp`` table), and as before on plain
 tensors.
 """
 from __future__ import annotations
@@ -33,7 +35,8 @@ from ..optim import adam
 from ..runtime.sharding import (P, ShardCtx, adaptive_spec, all_axes,
                                 axes_size, batch_axes, distribute_like,
                                 distribute_tree, mesh_axes,
-                                spec_to_placements, to_replicated)
+                                spec_to_placements, to_replicated,
+                                unshard_dims)
 from . import moe, transformer, whisper, xlstm, zamba2
 
 _FAMILY = {
@@ -130,6 +133,9 @@ def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
                                     params.encode(batch['frames']))
         elif cfg.family == 'moe':
             h, _ = params(batch['tokens'], ctx)
+            # the sequence gathered whole before the last position is sliced
+            last = unshard_dims(h, (1,))[:, -1:]
+            return to_replicated(params.logits(last, ctx)[:, 0])
         else:
             h = params(batch['tokens'])
         return params.logits(h[:, -1:])[:, 0]
@@ -145,12 +151,7 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
             return lg, dict(state, self=caches)
         return step
 
-    if cfg.family == 'moe':
-        def step(params, token, state, pos: int):
-            return params.decode_step(token, state, pos, ctx)
-        return step
-
-    if cfg.family in ('dense', 'vlm'):
+    if cfg.family in ('dense', 'vlm', 'moe'):
         def step(params, token, state, pos: int):
             return params.decode_step(token, state, pos, ctx)
         return step
@@ -364,6 +365,9 @@ def shard_step_inputs(cfg: ModelConfig, mesh, params, opt_state=None,
     return params, opt_state, batch
 
 
+_PARTITIONED_DECODE = ('dense', 'vlm', 'moe')
+
+
 def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
                         token=None):
     """The decode step's inputs laid out on ``mesh`` as DTensors, the JAX
@@ -373,11 +377,14 @@ def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
     over 'model'), the token [B, 1] by ``batch_shardings``; ``None``
     passes through.  ``pos`` stays a Python int (JAX's replicated scalar).
     Each rank holds the whole values and keeps its own block, in storage
-    of its own.  Only the dense and vlm decode steps run on this layout;
-    the other families raise.  Returns ``(params, state, token)``."""
-    if cfg.family not in ('dense', 'vlm'):
+    of its own.  The dense, vlm and moe decode steps run on this layout
+    (moe's caches [n_super, n_attn, B, T, Hkv, hd] by the same rule, two
+    stacked dims ahead); the other families raise.  Returns ``(params,
+    state, token)``."""
+    if cfg.family not in _PARTITIONED_DECODE:
         raise ValueError(f'{cfg.name}: the {cfg.family} decode step runs '
-                         'replicated; only dense and vlm run partitioned')
+                         'replicated; only dense, vlm and moe run '
+                         'partitioned')
     if params is not None:
         params = shard_step_inputs(cfg, mesh, params)[0]
     if state is not None:

@@ -6,8 +6,11 @@ JAX package writes as a ``shard_map`` slices its rank's block of each
 input by the body's input spec (``local_block``), runs with real
 ``torch.distributed`` collectives on the mesh's dimension groups
 (``mesh.get_group(axis)``), and restores the global value by its output
-spec (``gather_block``).  The gradients keep every rank's copy of a
-replicated value whole:
+spec (``gather_block``); on the partitioned program's DTensors a body
+takes each rank's block as it lies (``DTensor.to_local``, with its
+gradient's placements declared) and returns a DTensor
+(``models.moe._moe_ffn_ep``).  On replicated values the gradients keep
+every rank's copy whole:
 
   * a block taken from a replicated value gets the gradient that every
     rank whose block differs computed, summed over those ranks

@@ -25,7 +25,7 @@ CPU with ``fake`` process groups (nothing is sent, every tensor on
     its note reads ``partitioned``.
   * ``layers.decode_attend`` raises on a cache whose heads are sharded,
     and ``registry.shard_decode_inputs`` on the families whose decode
-    runs replicated.
+    runs replicated (encdec, ssm, hybrid).
 """
 import dataclasses
 import math
@@ -132,9 +132,8 @@ def test_decode_attend_refuses_a_head_sharded_cache(fake4):
         layers.decode_attend(q, kv, kv, 3)
 
 
-def test_only_dense_and_vlm_decode_inputs_are_laid_out():
-    for arch in ('granite-moe-1b-a400m', 'whisper-base', 'xlstm-1.3b',
-                 'zamba2-1.2b'):
+def test_encdec_ssm_and_hybrid_decode_inputs_are_not_laid_out():
+    for arch in ('whisper-base', 'xlstm-1.3b', 'zamba2-1.2b'):
         with pytest.raises(ValueError, match='runs replicated'):
             registry.shard_decode_inputs(get_config(arch), None)
 
