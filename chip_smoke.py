@@ -236,21 +236,24 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     (c)'s subprocesses start before ``mesh_phase`` and run beside it and
     the tp phase.  No hand-written kernel lies on these paths;
 15. tp (``tp_phase``, between the mesh and analysis phases): a one-rank
-    NCCL process group and a (data 1, model 1) mesh; smollm-360m at its
-    published widths and depth and yi-34b at its published widths cut to
-    2 layers, bfloat16, seeded 0: the train step of 8 x 256 tokens through
-    the DTensor layout of ``registry.shard_step_inputs`` and plainly, from
-    the same draw: the loss within 1e-6 and the grad norm within 1e-5
-    relative (bit for bit is printed), the layout hooks called on
-    DTensors, every parameter a DTensor; each way the step's median of 3
-    by CUDA events, the host clock of the call, kernel time and launches
-    from ``torch.profiler`` and the peak memory.  Then each decodes 8
-    rows (caches of 4,096 positions for smollm, 32,768 for yi-34b) 16
-    steps from position 0 through the DTensor layout of
+    NCCL process group and a (data 1, model 1) mesh; at their published
+    widths, bfloat16, seeded 0: smollm-360m, granite-moe-1b-a400m and
+    zamba2-1.2b at their published depths, yi-34b cut to 2 layers and
+    xlstm-1.3b to 16 (two super-blocks, each with its sLSTM block): the
+    train step of 8 x 256 tokens through the DTensor layout of
+    ``registry.shard_step_inputs`` and plainly, from the same draw: the
+    loss within 1e-6 and the grad norm within 1e-5 relative (bit for bit
+    is printed), the layout hooks called on DTensors, every parameter a
+    DTensor; each way the step's median of 3 by CUDA events and the
+    host clock of the same calls, kernel time and launches from
+    ``torch.profiler`` and the peak memory.  Then each decodes 8 rows (caches of 4,096
+    positions, 32,768 for yi-34b; xlstm has no cache, only its recurrent
+    state) 16 steps from position 0 through the DTensor layout of
     ``registry.shard_decode_inputs`` and plainly, from one draw and the
-    same seeded tokens: logits and caches bit for bit, the hooks called
-    on DTensors, every cache a DTensor; each way the step at position 16
-    timed as the train step is.  No hand-written kernel lies on this path;
+    same seeded tokens: logits and every state leaf bit for bit, the
+    hooks called on DTensors, every state leaf a DTensor; each way the
+    step at position 16 timed as the train step is.  No hand-written
+    kernel lies on this path;
 16. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -453,18 +456,23 @@ ANALYSIS_MIN_USEFUL = 0.25
 # the first step's loss within TP_LOSS_REL and grad norm within TP_NORM_REL
 # relative, then TP_TIMED_STEPS more each, timed.  An moe arch's DTensor
 # step takes the expert-parallel body (a one-rank all_to_all) in every MoE
-# layer, where the plain step takes the local path
+# layer, where the plain step takes the local path.  xlstm is cut to 16 of
+# its 48 layers (two super-blocks): its plain step took 3.5-4.0 s at 48
+# and DTensor's dispatch adds 2-3x
 TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2),
-            ('granite-moe-1b-a400m', None))
+            ('granite-moe-1b-a400m', None), ('xlstm-1.3b', 16),
+            ('zamba2-1.2b', None))
 TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 # the tp phase's decode part: each of TP_ARCHS decodes TP_DECODE_ROWS rows
 # against caches of TP_DECODE_SEQ[arch] positions (TP_DECODE_CPU_SEQ in a
-# CPU rehearsal), TP_DECODE_STEPS steps from position 0 through the DTensor
-# layout of registry.shard_decode_inputs and plainly, from one draw (seed
-# 0) and the same seeded tokens: logits and caches bit for bit, then
+# CPU rehearsal; xlstm's recurrent state has no length), TP_DECODE_STEPS
+# steps from position 0 through the DTensor layout of
+# registry.shard_decode_inputs and plainly, from one draw (seed 0) and the
+# same seeded tokens: logits and every state leaf bit for bit, then
 # TP_TIMED_STEPS more each at the next position, timed
 TP_DECODE_SEQ = {'smollm-360m': 4096, 'yi-34b': 32768,
-                 'granite-moe-1b-a400m': 4096}
+                 'granite-moe-1b-a400m': 4096, 'xlstm-1.3b': 4096,
+                 'zamba2-1.2b': 4096}
 TP_DECODE_CPU_SEQ, TP_DECODE_ROWS, TP_DECODE_STEPS = 32, 8, 16
 DEVICE = 'cuda'
 
@@ -4053,20 +4061,41 @@ def tp_ep_calls(pkg):
     return calls, patched([(pkg.moe, '_moe_ffn_ep', 'ep')], wrap)
 
 
-def tp_host_ms(step, reps: int) -> float:
-    """Median host clock of one ``step()`` call (after a sync, none after):
-    the time the host takes to issue the step."""
+def tp_times(step, reps: int) -> dict:
+    """Medians over ``reps`` calls of ``step()``, each after a sync:
+    ``step_ms`` by CUDA events (the host clock to the sync on the CPU) and
+    ``host_ms``, the host clock of the call alone (no sync after it), the
+    time the host takes to issue the step."""
     import torch
-    times = []
+    cuda = DEVICE == 'cuda'
+    ms, host = [], []
     for _ in range(reps):
-        if DEVICE == 'cuda':
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
+            start.record()
         t0 = time.perf_counter()
         step()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if DEVICE == 'cuda':
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            end.record()
             torch.cuda.synchronize()
-    return statistics.median(times)
+            ms.append(start.elapsed_time(end))
+        else:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {'step_ms': statistics.median(ms),
+            'host_ms': statistics.median(host)}
+
+
+def tp_leaves(state) -> list:
+    """The tensors of a decode state in one order: a K/V pair's in turn,
+    a dict's by sorted key, nested dicts within."""
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in tp_leaves(state[k])]
+    if isinstance(state, (tuple, list)):
+        return [t for x in state for t in tp_leaves(x)]
+    return [state]
 
 
 def tp_config(pkg, arch: str, layers: int | None):
@@ -4115,8 +4144,7 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
             'loss': float(loss), 'grad_norm': float(gnorm),
             'hook_calls': len(calls), 'ep_calls': len(ep),
             'ep_layers': len({id(p) for p in ep}),
-            'step_ms': time_ms(step, TP_TIMED_STEPS),
-            'host_ms': tp_host_ms(step, TP_TIMED_STEPS),
+            **tp_times(step, TP_TIMED_STEPS),
             'device_busy': lm_device_busy(step, 1) if cuda else None,
             'peak_bytes': peak_since(held) if cuda else None}
         del state, step
@@ -4133,7 +4161,8 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
     print(f'tp {arch} ({cfg.n_layers} layers) through the DTensor layout on '
           '(data 1, model 1) vs plainly, from one draw (step_ms: '
           f'{"CUDA events" if cuda else "host"}, host_ms: host clock of the '
-          f'call, medians of {TP_TIMED_STEPS} after the checked step; '
+          f'call, medians of the same {TP_TIMED_STEPS} calls after the '
+          'checked step; '
           'launches and kernel_ms: torch.profiler, one step; peak_bytes: '
           'above what was held as the run began, both models held): '
           + json.dumps(out), flush=True)
@@ -4205,15 +4234,14 @@ def tp_decode(pkg, mesh, arch: str, layers: int | None) -> dict:
     got, want = runs['dtensor'], runs['plain']
     same_logits = torch.equal(logits['dtensor'], logits['plain'])
     same_caches = [torch.equal(d.to_local(), c)
-                   for d, c in zip(dstate, state)]
+                   for d, c in zip(tp_leaves(dstate), tp_leaves(state))]
     for label, (m, st, _, tk) in progs.items():
         step = runs[label].pop('step')
 
         def one(step=step, m=m, st=st, t=tk[-1]):
             step(m, t, st, TP_DECODE_STEPS)
 
-        runs[label].update(step_ms=time_ms(one, TP_TIMED_STEPS),
-                           host_ms=tp_host_ms(one, TP_TIMED_STEPS),
+        runs[label].update(**tp_times(one, TP_TIMED_STEPS),
                            device_busy=lm_device_busy(one, 1) if cuda
                            else None)
     out = {'arch': arch, 'n_layers': cfg.n_layers, 'dtype': cfg.dtype,
@@ -4222,27 +4250,29 @@ def tp_decode(pkg, mesh, arch: str, layers: int | None) -> dict:
            'logits_max_abs': float((logits['dtensor'] - logits['plain'])
                                    .abs().max()),
            'bit_for_bit': same_logits and all(same_caches),
-           'cache_placements': sorted({str(tuple(c.placements))
-                                       for c in dstate})}
+           'state_leaves': len(same_caches),
+           'state_placements': sorted({str(tuple(c.placements))
+                                       for c in tp_leaves(dstate)})}
     print(f'tp decode {arch} ({cfg.n_layers} layers, {TP_DECODE_ROWS} rows, '
           f'cache {seq}) through the DTensor layout on (data 1, model 1) vs '
           f'plainly, {TP_DECODE_STEPS} steps from position 0 (step_ms: '
           f'{"CUDA events" if cuda else "host"}, host_ms: host clock of the '
-          f'call, medians of {TP_TIMED_STEPS} at position '
+          f'call, medians of the same {TP_TIMED_STEPS} calls at position '
           f'{TP_DECODE_STEPS}; launches and kernel_ms: torch.profiler, one '
           'step; peak_bytes: above what was held as the checked steps '
           'began, both models held): ' + json.dumps(out), flush=True)
     if not same_logits or not all(same_caches):
         fail(f'tp decode {arch}: the DTensor decode differs from the plain '
-             f'decode (logits equal: {same_logits}, caches equal: '
+             f'decode (logits equal: {same_logits}, state leaves equal: '
              f'{same_caches})')
     if got['hook_calls'] == 0 or want['hook_calls'] != 0:
         fail(f'tp decode {arch}: layout hooks on DTensors '
              f'{got["hook_calls"]} times through the layout (want some), '
              f'{want["hook_calls"]} plainly (want 0)')
     if not all(isinstance(c, torch.distributed.tensor.DTensor)
-               for c in dstate):
-        fail(f'tp decode {arch}: a cache of the layout is not a DTensor')
+               for c in tp_leaves(dstate)):
+        fail(f'tp decode {arch}: a state leaf of the layout is not a '
+             'DTensor')
     del plain, model, state, dstate, progs
     if cuda:
         torch.cuda.empty_cache()
@@ -4255,8 +4285,8 @@ def tp_phase(pkg) -> dict:
     TP_ARCHS stepped through the DTensor layout and plainly, its train
     step and its decode.  NCCL takes one rank a card, so the layouts that
     split work need more cards (tests/test_torch_mesh_tp.py,
-    tests/test_torch_mesh_decode.py and tests/test_torch_mesh_ep.py hold
-    them on 4 CPU ranks)."""
+    tests/test_torch_mesh_decode.py, tests/test_torch_mesh_ep.py and
+    tests/test_torch_mesh_ssm.py hold them on 4 CPU ranks)."""
     import torch.distributed as dist
     import torch.distributed.tensor  # noqa: F401  (DTensor for tp_train)
     t_phase = time.perf_counter()

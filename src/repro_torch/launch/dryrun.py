@@ -21,21 +21,23 @@ records:
     (``analysis.op_count``) and the three-term roofline on an H100
     (``analysis.roofline``).
 
-The dense, vlm and moe cells (smollm-360m, yi-34b, command-r-35b,
-nemotron-4-15b, chameleon-34b; granite-moe-1b-a400m and
-llama4-maverick-400b-a17b under the recipe ``ep``) at the train, prefill
-and decode shapes run the partitioned program: parameters, Adam state,
-batch and decode state are laid out as DTensors by the recipe's specs
+The dense, vlm, moe, ssm and hybrid cells (smollm-360m, yi-34b,
+command-r-35b, nemotron-4-15b, chameleon-34b; granite-moe-1b-a400m and
+llama4-maverick-400b-a17b under the recipe ``ep``; xlstm-1.3b and
+zamba2-1.2b under ``ssm``) at the train, prefill and decode shapes run
+the partitioned program: parameters, Adam state, batch and decode state
+are laid out as DTensors by the recipe's specs
 (``registry.shard_step_inputs`` and ``shard_decode_inputs``, the JAX
 package's ``in_shardings``), the model code's ``ShardCtx`` hooks
 redistribute its activations, and each rank computes and holds its own
-block (a decode rank its rows' block of the K/V caches' sequence; an MoE
-rank its block of the experts, their rows over ``data``, running the
-expert-parallel body on its tokens).  The other cells (the encdec, ssm
-and hybrid families) still run the replicated program: every rank runs
-the whole model on the whole batch, and only ``psum_compressed`` and the
-sharded frame split their work, so their ``useful_ratio`` reads about 1
-/ chips.  Each roofline row's ``note`` names the program it counted
+block (a decode rank its rows' block of the K/V caches' sequence, of the
+mLSTM state's dk, of the SSD state's heads; an MoE rank its block of the
+experts, their rows over ``data``, running the expert-parallel body on
+its tokens; a Mamba2 rank its heads).  The other cells (the encdec
+family, and ``long_500k``, whose long-context layout waits for its
+slice) still run the replicated program: every rank runs the whole model
+on the whole batch, and only ``psum_compressed`` and the sharded frame
+split their work, so their ``useful_ratio`` reads about 1 / chips.  Each roofline row's ``note`` names the program it counted
 (after the overrides, if any).  The counts are what one rank really
 runs.
 
@@ -126,10 +128,10 @@ def init_fake_world(world_size: int) -> None:
 # ---------------------------------------------------------------------------
 
 def partitioned(cfg, shape) -> bool:
-    """Whether the cell runs the partitioned program (dense, vlm and moe
-    at the train, prefill and decode shapes; not the long-context
+    """Whether the cell runs the partitioned program (every family but
+    encdec, at the train, prefill and decode shapes; not the long-context
     layout)."""
-    return (cfg.family in ('dense', 'vlm', 'moe')
+    return (cfg.family in ('dense', 'vlm', 'moe', 'ssm', 'hybrid')
             and shape.name != 'long_500k')
 
 

@@ -45,6 +45,17 @@ into a DTensor op, the layout is explicit:
     with a pending sum;
   * the unembedding is laid out with its vocab over ``model`` (``ctx.dv``)
     before the logits' matmul, as GSPMD would carry ``btv`` back into it;
+  * ``rmsnorm`` over a sharded last axis (an mLSTM's dv) reduces the sum
+    of squares across ranks before the division;
+  * ``project_heads`` projects into heads with head_dim over ``model``
+    (the ``btdv`` layout), the weight's [D, H, hd] view sliced on each
+    rank, where a contiguous column split would cut heads;
+  * ``on_rows`` runs a function of each row alone on each rank's rows,
+    its other axes and weights whole: the sLSTM walk (no collective in
+    its loop), and ops DTensor has no strategy for (``logsigmoid``'s
+    backward);
+  * ``store`` writes a decode step's new recurrent state into its view of
+    the stacked state, each rank its own block;
   * ``chunked_ce_loss`` gathers the sequence of the final states and the
     labels once (``sharding.unshard_dims``) before it slices its chunks,
     takes the log-sum-exp from a max and a sum (``_logsumexp``, reduced
@@ -92,7 +103,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     """RMSNorm: statistics in float32, the scale applied in the input dtype
     (``x * (rsqrt(var + eps) * w).to(x.dtype)``)."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if any(p.is_shard(x.ndim - 1) for p in getattr(x, 'placements', ())):
+        # over a sharded last axis (an mLSTM's dv) the sum of squares is a
+        # pending sum across ranks, reduced before the division (a mean
+        # would leave a pending average, whose backward DTensor lacks)
+        var = reduce_partials(torch.sum(x32 * x32, dim=-1, keepdim=True)
+                              ) / x.shape[-1]
+    else:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     scale = torch.rsqrt(var + eps)
     return x * (scale * w.float()).to(x.dtype)
 
@@ -198,6 +216,90 @@ def project(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
                              in_grad_placements=(dx_pl, dw_pl),
                              device_mesh=mesh)(xi, w))
     return tuple(out)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor, n_heads: int,
+                  ctx: ShardCtx = NO_CTX) -> torch.Tensor:
+    """``x @ w`` as ``n_heads`` heads [B, S, H, hd] of ``w``'s columns.
+
+    On DTensors ``w`` [D, H*hd] is taken whole (FSDP rows gathered) and
+    viewed as [D, H, hd] laid out as the values it makes
+    (``ShardCtx.head_dim``: hd over ``model``; a slice, nothing is sent),
+    and the product runs on each rank's blocks (``local_map``): each head
+    comes out with its hd over ``model`` (the ``btdv`` layout), where a
+    contiguous block of columns would split the heads themselves when
+    ``model`` does not divide H (xlstm's 4 heads on 16 ranks).  The
+    gradients are declared: a pending sum for ``x`` where hd is split,
+    for ``w`` where ``x``'s rows are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return (x @ w).reshape(*x.shape[:-1], n_heads, -1)
+    from torch.distributed.tensor.experimental import local_map
+    x = reduce_partials(unshard_dims(x, (-1,)))
+    w = reduce_partials(unshard_dims(w, (0, 1)))
+    w = ctx.head_dim(w.view(w.shape[0], n_heads, w.shape[1] // n_heads))
+    mesh, split = x.device_mesh, [p.is_shard(2) for p in w.placements]
+    pl = [Replicate() if split[i] else p for i, p in enumerate(x.placements)]
+    if tuple(pl) != tuple(x.placements):
+        x = x.redistribute(mesh, pl)
+    out_pl = [Shard(x.ndim) if split[i] else p for i, p in enumerate(pl)]
+    dx_pl = [Partial() if split[i] else p for i, p in enumerate(pl)]
+    dw_pl = [Partial() if p.is_shard() else w.placements[i]
+             for i, p in enumerate(pl)]
+
+    def heads(x, w):
+        return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                       n_heads, -1)
+
+    return local_map(heads, out_placements=out_pl,
+                     in_placements=(pl, list(w.placements)),
+                     in_grad_placements=(dx_pl, dw_pl),
+                     device_mesh=mesh)(x, w)
+
+
+def on_rows(fn, xs: tuple, ws: tuple = (), n_out: int = 1):
+    """``fn(*xs, *ws)`` for an ``fn`` that treats each row (the leading
+    axis) of every ``xs`` alone, with their other axes whole, and takes
+    the weights ``ws`` whole; ``n_out`` results.  On DTensors, on each
+    rank's rows (``local_map``): the other axes and the weights are
+    gathered whole first, every result is laid out as the rows (the rest
+    whole on each rank), and the weights' gradients are pending sums over
+    the ranks that split the rows.  For a recurrence that must run with
+    no collective inside (the sLSTM walk), and for ops that DTensor has
+    no strategy for (``logsigmoid``'s backward on some torch versions)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs, *ws)
+    from torch.distributed.tensor.experimental import local_map
+    xs = [unshard_dims(x, range(1, x.ndim)) for x in xs]
+    pl = list(xs[0].placements)
+    if any(tuple(x.placements) != tuple(pl) for x in xs):
+        raise ValueError('on_rows takes its inputs with one split of the '
+                         f'rows, got {[tuple(x.placements) for x in xs]}')
+    mesh = xs[0].device_mesh
+    whole = [Replicate()] * mesh.ndim
+    ws = [w if tuple(w.placements) == tuple(whole)
+          else w.redistribute(mesh, whole) for w in ws]
+    w_grad = [Partial() if p.is_shard() else p for p in pl]
+    return local_map(fn, out_placements=pl if n_out == 1 else (pl,) * n_out,
+                     in_placements=(pl,) * len(xs) + (whole,) * len(ws),
+                     in_grad_placements=(pl,) * len(xs) + (w_grad,) * len(ws),
+                     device_mesh=mesh)(*xs, *ws)
+
+
+def store(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst[...] = src`` in place, for a decode step's new state written
+    into its view of a stacked state (``state['mlstm'][i, j]``).  On
+    DTensors ``src`` is laid out as ``dst`` first (from whole values a
+    slice, nothing is sent) and each rank copies its own block, so the
+    write lands in the stack's block of that rank."""
+    if hasattr(dst, 'placements'):
+        if tuple(src.placements) != tuple(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+    return dst
 
 
 def merge(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

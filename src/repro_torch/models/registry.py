@@ -17,11 +17,13 @@ partition specs:
 parameters, its Adam state and a batch as DTensors by those specs, and
 ``shard_decode_inputs`` the parameters, the decode state and the token,
 as the JAX package's dry run gives them to ``jax.jit`` as
-``in_shardings``; the train, prefill and decode steps of the dense, vlm
-and moe families run partitioned on such a layout (moe's under the
-recipe ``ep``: the experts over ``model`` and their rows over ``data``,
-the dense submodules by the ``tp`` table), and as before on plain
-tensors.
+``in_shardings``; the train, prefill and decode steps of the dense, vlm,
+moe, ssm and hybrid families run partitioned on such a layout (moe's
+under the recipe ``ep``: the experts over ``model`` and their rows over
+``data``, the dense submodules by the ``tp`` table; xlstm's and zamba2's
+under ``ssm``: the ``tp`` table, the recurrent states by
+``decode_state_specs``), and as before on plain tensors.  The encdec
+family runs replicated.
 """
 from __future__ import annotations
 
@@ -133,12 +135,11 @@ def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
                                     params.encode(batch['frames']))
         elif cfg.family == 'moe':
             h, _ = params(batch['tokens'], ctx)
-            # the sequence gathered whole before the last position is sliced
-            last = unshard_dims(h, (1,))[:, -1:]
-            return to_replicated(params.logits(last, ctx)[:, 0])
         else:
-            h = params(batch['tokens'])
-        return params.logits(h[:, -1:])[:, 0]
+            h = params(batch['tokens'], ctx)
+        # the sequence gathered whole before the last position is sliced
+        last = unshard_dims(h, (1,))[:, -1:]
+        return to_replicated(params.logits(last, ctx)[:, 0])
     return prefill
 
 
@@ -151,13 +152,8 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
             return lg, dict(state, self=caches)
         return step
 
-    if cfg.family in ('dense', 'vlm', 'moe'):
-        def step(params, token, state, pos: int):
-            return params.decode_step(token, state, pos, ctx)
-        return step
-
     def step(params, token, state, pos: int):
-        return params.decode_step(token, state, pos)
+        return params.decode_step(token, state, pos, ctx)
     return step
 
 
@@ -365,26 +361,29 @@ def shard_step_inputs(cfg: ModelConfig, mesh, params, opt_state=None,
     return params, opt_state, batch
 
 
-_PARTITIONED_DECODE = ('dense', 'vlm', 'moe')
+_PARTITIONED_DECODE = ('dense', 'vlm', 'moe', 'ssm', 'hybrid')
 
 
 def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
                         token=None):
     """The decode step's inputs laid out on ``mesh`` as DTensors, the JAX
     package's ``in_shardings`` for it: the model ``params`` as
-    ``shard_step_inputs`` lays it out, the stacked K/V caches [L, B, T,
-    Hkv, hd] by ``decode_state_specs`` (batch over pod x data, sequence
-    over 'model'), the token [B, 1] by ``batch_shardings``; ``None``
-    passes through.  ``pos`` stays a Python int (JAX's replicated scalar).
-    Each rank holds the whole values and keeps its own block, in storage
-    of its own.  The dense, vlm and moe decode steps run on this layout
-    (moe's caches [n_super, n_attn, B, T, Hkv, hd] by the same rule, two
-    stacked dims ahead); the other families raise.  Returns ``(params,
-    state, token)``."""
+    ``shard_step_inputs`` lays it out, the decode state by
+    ``decode_state_specs``, the token [B, 1] by ``batch_shardings``;
+    ``None`` passes through.  ``pos`` stays a Python int (JAX's
+    replicated scalar).  Each rank holds the whole values and keeps its
+    own block, in storage of its own.  The dense, vlm and moe decode steps
+    run on this layout (the stacked K/V caches [L, B, T, Hkv, hd], moe's
+    [n_super, n_attn, B, T, Hkv, hd]: batch over pod x data, sequence over
+    'model'), and so do the ssm and hybrid ones (xlstm's ``{'mlstm',
+    'slstm_h', 'slstm_c'}``: batch, then heads, else dk, over 'model', the
+    sLSTM's di; zamba2's ``{'ssm': {'ssm', 'conv'}, 'kv_k', 'kv_v'}``:
+    the SSD state's heads, the conv window's channels, the caches'
+    sequence); encdec raises.  Returns ``(params, state, token)``."""
     if cfg.family not in _PARTITIONED_DECODE:
         raise ValueError(f'{cfg.name}: the {cfg.family} decode step runs '
-                         'replicated; only dense, vlm and moe run '
-                         'partitioned')
+                         'replicated; only dense, vlm, moe, ssm and hybrid '
+                         'run partitioned')
     if params is not None:
         params = shard_step_inputs(cfg, mesh, params)[0]
     if state is not None:

@@ -14,6 +14,31 @@ and one sLSTM block (``blocks.i.mlstm.j`` and ``blocks.i.slstm``).  A
 config whose depth ``slstm_every`` does not divide is one stack of mLSTM
 blocks (``blocks.i``), which the JAX package can run forward but not
 decode.
+
+Every entry point takes the ``ShardCtx`` (``ctx``, none by default) and
+calls its hooks where the JAX package's ``xlstm`` does (``btdv`` on the
+mLSTM values, ``btd`` on every residual).  On parameters, a batch and a
+decode state laid out as DTensors (``registry.shard_step_inputs`` and
+``shard_decode_inputs``, recipe ``ssm``) the model runs partitioned:
+
+  * mLSTM: ``u = x @ w_up`` comes out with di over ``model``; it is
+    gathered whole once, because the four projections after it contract
+    over di (reducing their partial sums instead would move q, k and v
+    whole, three times the bytes).  q is projected with its columns split
+    and gathered whole; k and v are projected into heads with their hd
+    split (``layers.project_heads``: a contiguous split of di would cut
+    heads when ``model`` does not divide H), k gathered whole, v left in
+    the ``btdv`` layout; the gates are whole.  The chunked scan then runs
+    on each rank's block (``linear_scan``), and ``out_norm``'s mean
+    square over the split dv is reduced across ranks
+    (``layers.rmsnorm``) before the heads are gathered for ``w_down``;
+  * sLSTM: ``x @ w_x`` is gathered whole over ``model`` once a block,
+    so the recurrence runs on each rank's rows with all of di and the
+    replicated ``w_h_blocks``, and its loop of S steps makes no
+    collective (the reason for the block-diagonal ``w_h_blocks``);
+  * decode: each block's new state is written into its view of the
+    stacked state (``layers.store``: each rank its own block), the
+    sLSTM's h and c gathered whole for the step.
 """
 from __future__ import annotations
 
@@ -22,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime.sharding import ShardCtx, unshard_dims
 from . import layers as L
 from .linear_scan import chunked_linear_attention, linear_attention_step
 from .params import LM
@@ -66,43 +92,61 @@ def slstm_params(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def _mlstm_qkvg(p, x, cfg):
+def _mlstm_gates(k, gates):
+    """k [B, S, H, hd] times the bounded input gate, and the log forget
+    gate [B, S, H] (<= 0), of the gate pre-activations [B, S, 2H]."""
+    b, s, h, _ = k.shape
+    gates = gates.reshape(b, s, 2, h).float()
+    log_f = F.logsigmoid(gates[:, :, 0])
+    i_gate = torch.sigmoid(gates[:, :, 1])                # bounded input gate
+    return k * i_gate[..., None].to(k.dtype), log_f
+
+
+def _mlstm_qkvg(p, x, cfg, ctx: ShardCtx = L.NO_CTX):
     b, s, _ = x.shape
     h = cfg.n_heads
     hd = _inner(cfg) // h
-    u = x @ p['w_up']
-    g = F.silu(x @ p['w_gate'])
-    q = (u @ p['wq']).reshape(b, s, h, hd)
-    k = (u @ p['wk']).reshape(b, s, h, hd) / math.sqrt(hd)
-    v = (u @ p['wv']).reshape(b, s, h, hd)
-    gates = (u @ p['w_if']).reshape(b, s, 2, h).float()
-    log_f = F.logsigmoid(gates[:, :, 0])                  # [B, S, H] <= 0
-    i_gate = torch.sigmoid(gates[:, :, 1])                # bounded input gate
-    k = k * i_gate[..., None].to(k.dtype)
-    return q, k, v, g, log_f
+    u, g = L.project(x, p['w_up'], p['w_gate'])
+    # whole once for the four projections that contract over di
+    u = unshard_dims(u, (1, 2))
+    q = unshard_dims(L.project(u, p['wq'])[0], (2,)).reshape(b, s, h, hd)
+    k = unshard_dims(L.project_heads(u, p['wk'], h, ctx), (3,)) / math.sqrt(
+        hd)
+    v = ctx.btdv(L.project_heads(u, p['wv'], h, ctx))
+    k, log_f = L.on_rows(_mlstm_gates, (k, L.project(u, p['w_if'])[0]),
+                         n_out=2)
+    return q, k, v, F.silu(g), log_f
 
 
-def _mlstm_out(p, res, y, g, cfg):
-    y = L.rmsnorm(y, p['out_norm'], cfg.norm_eps)
-    y = y.reshape(res.shape[0], res.shape[1], -1) * g
-    return res + y @ p['w_down']
+def _mlstm_out(p, res, y, g, cfg, ctx: ShardCtx = L.NO_CTX):
+    """y [B, S, H, hd] (or [B, H, hd] in decode) normed, its heads flattened
+    (whole over ``model``), gated by g and projected back."""
+    y = unshard_dims(L.rmsnorm(y, p['out_norm'], cfg.norm_eps), (-2, -1))
+    y = y.reshape(res.shape[0], res.shape[1], -1)
+    if hasattr(y, 'placements'):
+        # laid out as g first: the product's backward then hands the
+        # reshape a whole gradient (DTensor's own slicing would hand it
+        # g's split, which the heads' view cannot take)
+        y = y.redistribute(g.device_mesh, g.placements)
+    y = y * g
+    return ctx.btd(res + ctx.btd(L.merge(y, p['w_down'])))
 
 
-def mlstm_block(p, x, cfg):
+def mlstm_block(p, x, cfg, ctx: ShardCtx = L.NO_CTX):
     xx = L.rmsnorm(x, p['ln'], cfg.norm_eps)
-    q, k, v, g, log_f = _mlstm_qkvg(p, xx, cfg)
+    q, k, v, g, log_f = _mlstm_qkvg(p, xx, cfg, ctx)
     y, _ = chunked_linear_attention(q, k, v, log_f, normalize=True)
-    return _mlstm_out(p, x, y, g, cfg)
+    return _mlstm_out(p, x, y, g, cfg, ctx)
 
 
-def mlstm_decode(p, x, state, cfg):
+def mlstm_decode(p, x, state, cfg, ctx: ShardCtx = L.NO_CTX):
     """x [B, 1, D]; state [B, H, hd, hd+1].  Returns (y [B, 1, D], new
     state)."""
     xx = L.rmsnorm(x, p['ln'], cfg.norm_eps)
-    q, k, v, g, log_f = _mlstm_qkvg(p, xx, cfg)
+    q, k, v, g, log_f = _mlstm_qkvg(p, xx, cfg, ctx)
     y, state = linear_attention_step(
         state, q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], normalize=True)
-    return _mlstm_out(p, x, y, g, cfg), state
+    return _mlstm_out(p, x, y, g, cfg, ctx), state
 
 
 def _slstm_recur(pre_t, h, c, w32, n_heads: int, hd: int):
@@ -119,32 +163,48 @@ def _slstm_recur(pre_t, h, c, w32, n_heads: int, hd: int):
     return h, c
 
 
-def slstm_block(p, x, cfg):
-    """Scalar-memory LSTM over time: a float32 recurrence, one step a
-    token, each step's h rounded to the model dtype."""
-    xx = L.rmsnorm(x, p['ln'], cfg.norm_eps)
-    b, s, _ = xx.shape
-    di = _inner(cfg)
-    hd = di // cfg.n_heads
-    pre_x = xx @ p['w_x']                     # [B, S, 4 di], model dtype
-    w32 = p['w_h_blocks'].float()
-    h = torch.zeros((b, di), dtype=torch.float32, device=x.device)
+def _slstm_scan(pre_x, w_h_blocks, n_heads: int):
+    """The recurrence over time from zeroed h and c: pre_x [B, S, 4 di]
+    -> the h of every step [B, S, di] in pre_x's dtype, float32 inside."""
+    b, s, di4 = pre_x.shape
+    di = di4 // 4
+    w32 = w_h_blocks.float()
+    h = torch.zeros((b, di), dtype=torch.float32, device=pre_x.device)
     c = torch.zeros_like(h)
     hs = []
     for t in range(s):
-        h, c = _slstm_recur(pre_x[:, t].float(), h, c, w32, cfg.n_heads, hd)
+        h, c = _slstm_recur(pre_x[:, t].float(), h, c, w32, n_heads,
+                            di // n_heads)
         hs.append(h.to(pre_x.dtype))
-    return x + torch.stack(hs, dim=1) @ p['w_down']
+    return torch.stack(hs, dim=1)
 
 
-def slstm_decode(p, x, state, cfg):
-    """x [B, 1, D]; state (h, c) [B, di] float32."""
+def slstm_block(p, x, cfg, ctx: ShardCtx = L.NO_CTX):
+    """Scalar-memory LSTM over time: a float32 recurrence, one step a
+    token, each step's h rounded to the model dtype.  On DTensors
+    ``pre_x``'s four gates are gathered whole over ``model`` once, and
+    the recurrence runs on each rank's rows (``layers.on_rows``)."""
     xx = L.rmsnorm(x, p['ln'], cfg.norm_eps)
-    h, c = state
-    pre = (xx[:, 0] @ p['w_x']).float()
-    h, c = _slstm_recur(pre, h, c, p['w_h_blocks'].float(), cfg.n_heads,
-                        _inner(cfg) // cfg.n_heads)
-    return x + h[:, None].to(x.dtype) @ p['w_down'], (h, c)
+    pre_x = L.project(xx, p['w_x'])[0]        # [B, S, 4 di], model dtype
+    hs = L.on_rows(lambda pre, w: _slstm_scan(pre, w, cfg.n_heads),
+                   (pre_x,), (p['w_h_blocks'],))
+    return ctx.btd(x + ctx.btd(L.merge(hs, p['w_down'])))
+
+
+def slstm_decode(p, x, state, cfg, ctx: ShardCtx = L.NO_CTX):
+    """x [B, 1, D]; state (h, c) [B, di] float32.  On DTensors h and c
+    are gathered whole for the step, which runs on each rank's rows; the
+    new (h, c) come out whole over ``model``."""
+    xx = L.rmsnorm(x, p['ln'], cfg.norm_eps)
+    hd = _inner(cfg) // cfg.n_heads
+
+    def recur(pre, h, c, w):
+        return _slstm_recur(pre.float(), h, c, w.float(), cfg.n_heads, hd)
+
+    pre = L.project(xx[:, 0], p['w_x'])[0]
+    h, c = L.on_rows(recur, (pre, *state), (p['w_h_blocks'],), n_out=2)
+    y = ctx.btd(L.merge(h[:, None].to(x.dtype), p['w_down']))
+    return ctx.btd(x + y), (h, c)
 
 
 # ---------------------------------------------------------------------------
@@ -165,29 +225,32 @@ class XLSTM(LM):
     super-block ``{'mlstm': [se-1 dicts], 'slstm': {...}}`` (or one mLSTM
     dict a layer where the depth does not group)."""
 
-    def _super_block(self, blk, x):
+    def _super_block(self, blk, x, ctx: ShardCtx):
         for p_m in blk.mlstm:
-            x = mlstm_block(p_m, x, self.cfg)
-        return slstm_block(blk.slstm, x, self.cfg)
+            x = mlstm_block(ctx.weights(p_m), x, self.cfg, ctx)
+        return slstm_block(ctx.weights(blk.slstm), x, self.cfg, ctx)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
         """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
         super-block's activations are recomputed in the backward pass (as
         in the JAX package, a depth that does not group runs without)."""
         cfg = self.cfg
-        x = L.embed(self.tok, tokens)
+        x = L.embed(self.tok, tokens, ctx)
         _, se = _super(cfg)
         for blk in self.blocks:
             if se:
-                x = L.remat(cfg.remat, self._super_block, blk, x)
+                x = L.remat(cfg.remat, self._super_block, blk, x, ctx)
             else:
-                x = mlstm_block(blk, x, cfg)
+                x = mlstm_block(ctx.weights(blk), x, cfg, ctx)
         return x
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, state: dict, pos: int):
+    def decode_step(self, token: torch.Tensor, state: dict, pos: int,
+                    ctx: ShardCtx = L.NO_CTX):
         """One recurrent step; ``state`` (``init_state``'s) is written in
-        place.  The position is carried by the state.  Returns (logits
+        place (``layers.store``: on DTensors each rank's block of the
+        stack).  The position is carried by the state.  Returns (logits
         [B, V], state)."""
         del pos
         cfg = self.cfg
@@ -196,21 +259,25 @@ class XLSTM(LM):
                 f'{cfg.name}: slstm_every={cfg.slstm_every} does not divide '
                 f'n_layers={cfg.n_layers}; the reference decodes only '
                 'super-blocks of mLSTM blocks and one sLSTM block')
-        x = L.embed(self.tok, token)
+        x = L.embed(self.tok, token, ctx)
         m, sh, sc = state['mlstm'], state['slstm_h'], state['slstm_c']
         for i, blk in enumerate(self.blocks):
             for j, p_m in enumerate(blk.mlstm):
-                x, m[i, j] = mlstm_decode(p_m, x, m[i, j], cfg)
-            x, (sh[i], sc[i]) = slstm_decode(blk.slstm, x, (sh[i], sc[i]),
-                                             cfg)
-        return self.logits(x)[:, 0], state
+                x, new = mlstm_decode(ctx.weights(p_m), x, m[i, j], cfg, ctx)
+                L.store(m[i, j], new)
+            x, (h, c) = slstm_decode(ctx.weights(blk.slstm), x,
+                                     (sh[i], sc[i]), cfg, ctx)
+            L.store(sh[i], h)
+            L.store(sc[i], c)
+        return self.logits(x, ctx)[:, 0], state
 
 
-def train_loss(params: XLSTM, batch: dict, cfg, ctx) -> torch.Tensor:
+def train_loss(params: XLSTM, batch: dict, cfg,
+               ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
     """The mean next-token cross entropy of ``batch``.  ``cfg`` is the
     model's own."""
-    h = params(batch['tokens'])
-    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
+    h = params(batch['tokens'], ctx)
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg, ctx)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> XLSTM:

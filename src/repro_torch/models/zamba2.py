@@ -2,11 +2,23 @@
 + MLP block applied after every ``attn_every``-th layer.  The block's
 weights appear once (``shared``) and every point reuses them; each point
 keeps its own K/V cache.
+
+Every entry point takes the ``ShardCtx`` (``ctx``, none by default) and
+calls its hooks where the JAX package's ``zamba2`` does: on parameters, a
+batch and a decode state laid out as DTensors (``registry``, recipe
+``ssm``) the Mamba2 layers run partitioned by heads (``mamba2``), and
+the shared block runs the dense family's partitioned attention and MLP
+(``layers``) on its weights with their FSDP shards gathered
+(``ShardCtx.weights``); each point's K/V cache ``kv_k[i]`` is a view of
+the stack's blocks, so the decode's writes at ``pos`` land in the stack
+(``layers.write_at``), and each layer's new SSD state and conv window
+are written into their views of the stacked states (``layers.store``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..runtime.sharding import ShardCtx, as_dtensor_like
 from . import layers as L
 from . import mamba2
 from .params import LM, positions
@@ -30,61 +42,75 @@ class Zamba2(LM):
     """``params``: ``{'tok': {...}, 'mamba': [one dict a layer], 'shared':
     {'ln1', 'ln2', 'attn', 'mlp'}}``."""
 
-    def _shared_mlp(self, x):
-        p = self.shared
-        return x + L.mlp(p.mlp, L.rmsnorm(x, p.ln2, self.cfg.norm_eps),
-                         self.cfg)
+    def _mamba(self, l: int, x, ctx: ShardCtx):
+        """Mamba2 layer ``l``, its weights' FSDP shards gathered inside
+        (so a recompute gathers them again, rather than holding them)."""
+        return mamba2.mamba_block(ctx.weights(self.mamba[l]), x, self.cfg,
+                                  ctx)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _shared_mlp(self, x, ctx: ShardCtx):
+        p = self.shared
+        return ctx.btd(x + L.mlp(ctx.weights(p.mlp),
+                                 L.rmsnorm(x, p.ln2, self.cfg.norm_eps),
+                                 self.cfg, ctx))
+
+    def forward(self, tokens: torch.Tensor,
+                ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
         """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
         Mamba2 layer's activations are recomputed in the backward pass (the
-        shared attention block's are kept, as in the JAX package)."""
+        shared attention block's are kept, as in the JAX package).  On
+        tokens laid out as a DTensor the positions are laid out as the
+        tokens."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = L.embed(self.tok, tokens)
-        pos = positions(b, s, tokens.device)
+        x = L.embed(self.tok, tokens, ctx)
+        pos = as_dtensor_like(positions(b, s, tokens.device), tokens,
+                              getattr(tokens, 'placements', None))
         n_pts = len(_attn_points(cfg))
         p = self.shared
         for si, (lo, hi) in enumerate(_segments(cfg)):
             for l in range(lo, hi):
-                x = L.remat(cfg.remat, mamba2.mamba_block, self.mamba[l], x,
-                            cfg)
+                x = L.remat(cfg.remat, self._mamba, l, x, ctx)
             if si < n_pts:
                 h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
-                x = self._shared_mlp(x + L.attention_train(p.attn, h, cfg,
-                                                           pos))
+                x = self._shared_mlp(x + L.attention_train(
+                    ctx.weights(p.attn), h, cfg, pos, ctx=ctx), ctx)
         return x
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, state: dict, pos: int):
+    def decode_step(self, token: torch.Tensor, state: dict, pos: int,
+                    ctx: ShardCtx = L.NO_CTX):
         """One decode step; ``state`` (``init_state``'s) is written in
         place: each layer's Mamba2 state, and at attention point i the K/V
         of ``kv_k[i]``/``kv_v[i]`` at ``pos``.  Returns (logits [B, V],
         state)."""
         cfg = self.cfg
-        x = L.embed(self.tok, token)
+        x = L.embed(self.tok, token, ctx)
         ssm, conv = state['ssm']['ssm'], state['ssm']['conv']
         n_pts = len(_attn_points(cfg))
         p = self.shared
         for si, (lo, hi) in enumerate(_segments(cfg)):
             for l in range(lo, hi):
                 x, new = mamba2.mamba_decode(
-                    self.mamba[l], x, {'ssm': ssm[l], 'conv': conv[l]}, cfg)
-                ssm[l], conv[l] = new['ssm'], new['conv']
+                    ctx.weights(self.mamba[l]), x,
+                    {'ssm': ssm[l], 'conv': conv[l]}, cfg, ctx)
+                L.store(ssm[l], new['ssm'])
+                L.store(conv[l], new['conv'])
             if si < n_pts:
                 h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
                 y, _ = L.attention_decode(
-                    p.attn, h, cfg, (state['kv_k'][si], state['kv_v'][si]),
-                    pos)
-                x = self._shared_mlp(x + y)
-        return self.logits(x)[:, 0], state
+                    ctx.weights(p.attn), h, cfg,
+                    (state['kv_k'][si], state['kv_v'][si]), pos, ctx)
+                x = self._shared_mlp(x + y, ctx)
+        return self.logits(x, ctx)[:, 0], state
 
 
-def train_loss(params: Zamba2, batch: dict, cfg, ctx) -> torch.Tensor:
+def train_loss(params: Zamba2, batch: dict, cfg,
+               ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
     """The mean next-token cross entropy of ``batch``.  ``cfg`` is the
     model's own."""
-    h = params(batch['tokens'])
-    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg)
+    h = params(batch['tokens'], ctx)
+    return L.chunked_ce_loss(params.tok, h, batch['labels'], cfg, ctx)
 
 
 def init_params(gen: torch.Generator, cfg, tp: int = 1) -> Zamba2:

@@ -23,17 +23,19 @@ serve every shape.  A spec is the port's own ``P``, a tuple of entries
 The port runs one process per rank, every rank the same program.
 ``distribute_tree`` lays out a tree of values as DTensors by a tree of
 specs, the counterpart of the JAX package's ``device_put`` with a
-``NamedSharding``: the dense, vlm and moe models' parameters, Adam state,
-batch and decode state (``models.registry.shard_step_inputs`` and
-``shard_decode_inputs``).  On such a layout the model code's
+``NamedSharding``: the dense, vlm, moe, ssm and hybrid models'
+parameters, Adam state, batch and decode state
+(``models.registry.shard_step_inputs`` and ``shard_decode_inputs``).  On such a layout the model code's
 ``ShardCtx`` hooks are the counterpart of the JAX package's
 ``with_sharding_constraint``: a plain tensor passes unchanged, a
 ``DTensor`` is redistributed to the hook's layout, and DTensor's own
 sharding propagation partitions the ops between them as GSPMD does; the
 expert-parallel MoE body, a ``shard_map`` in the JAX package, takes each
 rank's blocks of its DTensor inputs and runs real collectives
-(``runtime.spmd``).  The other families still run every rank on
-replicated values; their bodies that change what is computed (the
+(``runtime.spmd``), and the recurrent cores (the chunked linear
+attention, its decode step, the sLSTM scan, a Mamba2 layer's heads) run
+on each rank's blocks (``local_map``).  The encdec family still runs
+every rank on replicated values; the bodies that change what is computed (the
 compressed all-reduce, GPipe, the sharded frame, and the MoE body when
 its inputs are replicated) slice their rank's block and run real
 collectives.
@@ -271,6 +273,13 @@ class ShardCtx:
         so every contraction of the chunked scan stays local."""
         return self._constrain(x, [(0, batch_axes(self.mesh)),
                                    (3, 'model')])
+
+    def head_dim(self, w):
+        """[d_in, heads, head_dim] weight of a projection into heads:
+        head_dim over model, as the ``btdv`` values it makes.  No JAX
+        counterpart: GSPMD lays out the weight's columns for the values'
+        constraint itself."""
+        return self._constrain(w, [(2, 'model')])
 
     def experts(self, x):
         """[experts, capacity, d] bucketed MoE activations, EP over model."""

@@ -24,8 +24,8 @@ CPU with ``fake`` process groups (nothing is sent, every tensor on
     sequence whole would move (1.07e9 B), so no rank gathers the cache;
     its note reads ``partitioned``.
   * ``layers.decode_attend`` raises on a cache whose heads are sharded,
-    and ``registry.shard_decode_inputs`` on the families whose decode
-    runs replicated (encdec, ssm, hybrid).
+    and ``registry.shard_decode_inputs`` on the family whose decode runs
+    replicated (encdec: whisper-base).
 """
 import dataclasses
 import math
@@ -133,9 +133,10 @@ def test_decode_attend_refuses_a_head_sharded_cache(fake4):
 
 
 def test_encdec_ssm_and_hybrid_decode_inputs_are_not_laid_out():
-    for arch in ('whisper-base', 'xlstm-1.3b', 'zamba2-1.2b'):
-        with pytest.raises(ValueError, match='runs replicated'):
-            registry.shard_decode_inputs(get_config(arch), None)
+    """Only encdec's decode still runs replicated (ssm and hybrid lay out
+    their states: ``tests/test_torch_dryrun_ssm.py``)."""
+    with pytest.raises(ValueError, match='runs replicated'):
+        registry.shard_decode_inputs(get_config('whisper-base'), None)
 
 
 class Mesh:
