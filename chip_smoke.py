@@ -237,9 +237,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     the tp phase.  No hand-written kernel lies on these paths;
 15. tp (``tp_phase``, between the mesh and analysis phases): a one-rank
     NCCL process group and a (data 1, model 1) mesh; at their published
-    widths, bfloat16, seeded 0: smollm-360m, granite-moe-1b-a400m and
-    zamba2-1.2b at their published depths, yi-34b cut to 2 layers and
-    xlstm-1.3b to 16 (two super-blocks, each with its sLSTM block): the
+    widths, bfloat16, seeded 0: smollm-360m, granite-moe-1b-a400m,
+    zamba2-1.2b and whisper-base at their published depths, yi-34b cut to
+    2 layers and xlstm-1.3b to 16 (two super-blocks, each with its sLSTM
+    block): the
     train step of 8 x 256 tokens through the DTensor layout of
     ``registry.shard_step_inputs`` and plainly, from the same draw: the
     loss within 1e-6 and the grad norm within 1e-5 relative (bit for bit
@@ -248,12 +249,19 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     host clock of the same calls, kernel time and launches from
     ``torch.profiler`` and the peak memory.  Then each decodes 8 rows (caches of 4,096
     positions, 32,768 for yi-34b; xlstm has no cache, only its recurrent
-    state) 16 steps from position 0 through the DTensor layout of
+    state; whisper's cross pair is ``prepare_cross`` of 4,096 seeded
+    frames, through the layout bit for bit with the plain one) 16 steps
+    from position 0 through the DTensor layout of
     ``registry.shard_decode_inputs`` and plainly, from one draw and the
     same seeded tokens: logits and every state leaf bit for bit, the
     hooks called on DTensors, every state leaf a DTensor; each way the
-    step at position 16 timed as the train step is.  No hand-written
-    kernel lies on this path;
+    step at position 16 timed as the train step is.  Last, zamba2-1.2b's
+    ``long_500k`` decode: one row, caches of 524,288 positions filled
+    with seeded values and laid out by ``shard_decode_inputs(
+    long_context=True)`` (25.8 GB each way), 4 steps at the cache's last
+    positions checked as above, the step at the last position timed and
+    printed beside its bound, the caches' bytes over the card's copy
+    rate.  No hand-written kernel lies on this path;
 16. print the total wall time, the ``{"kernels": [...]}`` line, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -461,7 +469,7 @@ ANALYSIS_MIN_USEFUL = 0.25
 # and DTensor's dispatch adds 2-3x
 TP_ARCHS = (('smollm-360m', None), ('yi-34b', 2),
             ('granite-moe-1b-a400m', None), ('xlstm-1.3b', 16),
-            ('zamba2-1.2b', None))
+            ('zamba2-1.2b', None), ('whisper-base', None))
 TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 # the tp phase's decode part: each of TP_ARCHS decodes TP_DECODE_ROWS rows
 # against caches of TP_DECODE_SEQ[arch] positions (TP_DECODE_CPU_SEQ in a
@@ -469,11 +477,21 @@ TP_LOSS_REL, TP_NORM_REL, TP_TIMED_STEPS = 1e-6, 1e-5, 3
 # steps from position 0 through the DTensor layout of
 # registry.shard_decode_inputs and plainly, from one draw (seed 0) and the
 # same seeded tokens: logits and every state leaf bit for bit, then
-# TP_TIMED_STEPS more each at the next position, timed
+# TP_TIMED_STEPS more each at the next position, timed.  whisper's cross
+# pair is prepare_cross of TP_DECODE_SEQ seeded frames a row
 TP_DECODE_SEQ = {'smollm-360m': 4096, 'yi-34b': 32768,
                  'granite-moe-1b-a400m': 4096, 'xlstm-1.3b': 4096,
-                 'zamba2-1.2b': 4096}
+                 'zamba2-1.2b': 4096, 'whisper-base': 4096}
 TP_DECODE_CPU_SEQ, TP_DECODE_ROWS, TP_DECODE_STEPS = 32, 8, 16
+# the long-context decode of the tp phase: TP_LONG's arch at the
+# long_500k shape (one row, caches of its 524,288 positions, or
+# TP_DECODE_CPU_SEQ in a CPU rehearsal) laid out by
+# shard_decode_inputs(long_context=True), its caches filled with seeded
+# values; TP_LONG_STEPS steps at the cache's last positions checked as
+# above, then the step at the last position timed against the caches'
+# bytes over TP_COPY_TBPS, the device-to-device copy rate that
+# analysis_phase (d) measured on an H100 80GB HBM3 at 700 W (3.035 TB/s)
+TP_LONG, TP_LONG_STEPS, TP_COPY_TBPS = 'zamba2-1.2b', 4, 3.035
 DEVICE = 'cuda'
 
 
@@ -4191,40 +4209,69 @@ def tp_train(pkg, mesh, arch: str, layers: int | None) -> dict:
     return out
 
 
-def tp_decode(pkg, mesh, arch: str, layers: int | None) -> dict:
+def tp_decode(pkg, mesh, arch: str, layers: int | None,
+              long_context: bool = False) -> dict:
     """The decode part of one config of the tp phase: TP_DECODE_STEPS
     steps from position 0 through the DTensor layout and plainly, from one
     draw and the same tokens, logits and caches checked bit for bit, then
-    the step at the next position timed both ways."""
+    the step at the next position timed both ways.  encdec decodes over
+    the cross pair of ``prepare_cross``, made through the layout too and
+    checked bit for bit.  ``long_context``: the long_500k shape, one row
+    against caches of its whole length filled with seeded values, laid
+    out by the long-context rule, TP_LONG_STEPS steps at the cache's last
+    positions, the timed step beside the caches' bytes over
+    TP_COPY_TBPS."""
     import torch
     registry = pkg.registry
     cfg = tp_config(pkg, arch, layers)
     cuda = DEVICE == 'cuda'
-    seq = TP_DECODE_SEQ[arch] if LM_FULL else TP_DECODE_CPU_SEQ
-    plain = registry.init_params(0, cfg, device=DEVICE)
-    state = registry.init_decode_state(cfg, TP_DECODE_ROWS, seq,
-                                       device=DEVICE)
-    # the layout copies every block (one rank keeps the whole value)
-    model, dstate, _ = registry.shard_decode_inputs(cfg, mesh, plain, state)
+    long = pkg.configs.base.SHAPES['long_500k']
+    rows, seq = ((long.global_batch, long.seq_len) if long_context
+                 else (TP_DECODE_ROWS, TP_DECODE_SEQ[arch]))
+    seq = seq if LM_FULL else TP_DECODE_CPU_SEQ
+    n_steps = TP_LONG_STEPS if long_context else TP_DECODE_STEPS
+    first = seq - n_steps - 1 if long_context else 0
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    toks = torch.randint(0, cfg.vocab, (TP_DECODE_STEPS + 1, TP_DECODE_ROWS,
-                                        1), generator=gen, device=DEVICE,
-                         dtype=torch.int32)
+    plain = registry.init_params(0, cfg, device=DEVICE)
+    state = registry.init_decode_state(cfg, rows, seq, device=DEVICE)
+    if long_context:      # a full cache: every position holds a key
+        for key in ('kv_k', 'kv_v'):
+            state[key].normal_(generator=gen)
+    cross_same = None
+    if cfg.family == 'encdec':
+        frames = torch.randn((rows, seq, cfg.d_model), generator=gen,
+                             device=DEVICE).to(getattr(torch, cfg.dtype))
+        state['cross'] = plain.prepare_cross(frames)
+    # the layout copies every block (one rank keeps the whole value)
+    model, dstate, _ = registry.shard_decode_inputs(
+        cfg, mesh, plain, state, long_context=long_context)
+    if cfg.family == 'encdec':
+        dframes = registry.shard_step_inputs(cfg, mesh, None, batch={
+            'frames': frames})[2]['frames']
+        dcross = model.prepare_cross(dframes, registry.make_ctx(mesh, cfg))
+        cross_same = all(torch.equal(d.to_local(), c)
+                         for d, c in zip(dcross, state['cross']))
+        del frames, dframes, dcross
+    toks = torch.randint(0, cfg.vocab, (n_steps + 1, rows, 1),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
     progs = {'plain': (plain, state, None, list(toks)),
              'dtensor': (model, dstate, mesh, [
                  registry.shard_decode_inputs(cfg, mesh, token=t)[2]
                  for t in toks])}
     runs, logits = {}, {}
     for label, (m, st, ctx_mesh, tk) in progs.items():
-        step = registry.make_decode_step(cfg, registry.make_ctx(ctx_mesh,
-                                                                cfg))
+        step = registry.make_decode_step(cfg, registry.make_ctx(
+            ctx_mesh, cfg, long_context=long_context and bool(ctx_mesh)))
         held = memory_mark() if cuda else 0
         calls, hooks = tp_hook_calls(pkg)
         lgs = []
         with hooks:
-            for pos in range(TP_DECODE_STEPS):
-                lg, out = step(m, tk[pos], st, pos)
-                if out is not st:
+            for i in range(n_steps):
+                lg, out = step(m, tk[i], st, first + i)
+                # written in place: the leaves given (encdec's step
+                # returns them in a new dict, as the JAX package's does)
+                if [id(t) for t in tp_leaves(out)] != [
+                        id(t) for t in tp_leaves(st)]:
                     fail(f'tp decode {arch}: the {label} step returned '
                          'another state than it was given')
                 lgs.append(lg.full_tensor() if ctx_mesh else lg)
@@ -4239,32 +4286,41 @@ def tp_decode(pkg, mesh, arch: str, layers: int | None) -> dict:
         step = runs[label].pop('step')
 
         def one(step=step, m=m, st=st, t=tk[-1]):
-            step(m, t, st, TP_DECODE_STEPS)
+            step(m, t, st, first + n_steps)
 
         runs[label].update(**tp_times(one, TP_TIMED_STEPS),
                            device_busy=lm_device_busy(one, 1) if cuda
                            else None)
     out = {'arch': arch, 'n_layers': cfg.n_layers, 'dtype': cfg.dtype,
-           'rows': TP_DECODE_ROWS, 'cache_len': seq,
-           'steps': TP_DECODE_STEPS, **runs,
+           'rows': rows, 'cache_len': seq, 'steps': n_steps,
+           'first_pos': first, 'long_context': long_context, **runs,
            'logits_max_abs': float((logits['dtensor'] - logits['plain'])
                                    .abs().max()),
            'bit_for_bit': same_logits and all(same_caches),
+           'cross_bit_for_bit': cross_same,
            'state_leaves': len(same_caches),
            'state_placements': sorted({str(tuple(c.placements))
                                        for c in tp_leaves(dstate)})}
-    print(f'tp decode {arch} ({cfg.n_layers} layers, {TP_DECODE_ROWS} rows, '
-          f'cache {seq}) through the DTensor layout on (data 1, model 1) vs '
-          f'plainly, {TP_DECODE_STEPS} steps from position 0 (step_ms: '
+    if long_context:
+        kv = sum(state[k].numel() * state[k].element_size()
+                 for k in ('kv_k', 'kv_v'))
+        out.update(cache_bytes=kv, bound_ms=kv / (TP_COPY_TBPS * 1e12) * 1e3)
+    print(f'tp decode {arch} ({cfg.n_layers} layers, {rows} rows, cache '
+          f'{seq}{", long-context layout" if long_context else ""}) '
+          'through the DTensor layout on (data 1, model 1) vs plainly, '
+          f'{n_steps} steps from position {first} (step_ms: '
           f'{"CUDA events" if cuda else "host"}, host_ms: host clock of the '
           f'call, medians of the same {TP_TIMED_STEPS} calls at position '
-          f'{TP_DECODE_STEPS}; launches and kernel_ms: torch.profiler, one '
+          f'{first + n_steps}; launches and kernel_ms: torch.profiler, one '
           'step; peak_bytes: above what was held as the checked steps '
-          'began, both models held): ' + json.dumps(out), flush=True)
-    if not same_logits or not all(same_caches):
+          'began, both models held'
+          + ('; bound_ms: cache_bytes over the copy rate '
+             f'{TP_COPY_TBPS} TB/s' if long_context else '') + '): '
+          + json.dumps(out), flush=True)
+    if not same_logits or not all(same_caches) or cross_same is False:
         fail(f'tp decode {arch}: the DTensor decode differs from the plain '
              f'decode (logits equal: {same_logits}, state leaves equal: '
-             f'{same_caches})')
+             f'{same_caches}, cross pair equal: {cross_same})')
     if got['hook_calls'] == 0 or want['hook_calls'] != 0:
         fail(f'tp decode {arch}: layout hooks on DTensors '
              f'{got["hook_calls"]} times through the layout (want some), '
@@ -4283,10 +4339,12 @@ def tp_phase(pkg) -> dict:
     """The partitioned LM program on this card: a one-rank process group
     (NCCL; gloo on the CPU) and a (data 1, model 1) mesh, then each of
     TP_ARCHS stepped through the DTensor layout and plainly, its train
-    step and its decode.  NCCL takes one rank a card, so the layouts that
-    split work need more cards (tests/test_torch_mesh_tp.py,
-    tests/test_torch_mesh_decode.py, tests/test_torch_mesh_ep.py and
-    tests/test_torch_mesh_ssm.py hold them on 4 CPU ranks)."""
+    step and its decode, and TP_LONG's decode at long_500k.  NCCL takes
+    one rank a card, so the layouts that split work need more cards
+    (tests/test_torch_mesh_tp.py, tests/test_torch_mesh_decode.py,
+    tests/test_torch_mesh_ep.py, tests/test_torch_mesh_ssm.py,
+    tests/test_torch_mesh_encdec.py and tests/test_torch_mesh_long.py
+    hold them on 4 CPU ranks)."""
     import torch.distributed as dist
     import torch.distributed.tensor  # noqa: F401  (DTensor for tp_train)
     t_phase = time.perf_counter()
@@ -4297,6 +4355,9 @@ def tp_phase(pkg) -> dict:
         out = {arch: {'train': tp_train(pkg, mesh, arch, layers),
                       'decode': tp_decode(pkg, mesh, arch, layers)}
                for arch, layers in TP_ARCHS}
+        out[TP_LONG]['long_500k'] = tp_decode(pkg, mesh, TP_LONG,
+                                              dict(TP_ARCHS)[TP_LONG],
+                                              long_context=True)
     finally:
         dist.destroy_process_group()
     out['phase_s'] = time.perf_counter() - t_phase

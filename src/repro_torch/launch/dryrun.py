@@ -21,25 +21,24 @@ records:
     (``analysis.op_count``) and the three-term roofline on an H100
     (``analysis.roofline``).
 
-The dense, vlm, moe, ssm and hybrid cells (smollm-360m, yi-34b,
-command-r-35b, nemotron-4-15b, chameleon-34b; granite-moe-1b-a400m and
-llama4-maverick-400b-a17b under the recipe ``ep``; xlstm-1.3b and
-zamba2-1.2b under ``ssm``) at the train, prefill and decode shapes run
-the partitioned program: parameters, Adam state, batch and decode state
-are laid out as DTensors by the recipe's specs
-(``registry.shard_step_inputs`` and ``shard_decode_inputs``, the JAX
-package's ``in_shardings``), the model code's ``ShardCtx`` hooks
-redistribute its activations, and each rank computes and holds its own
-block (a decode rank its rows' block of the K/V caches' sequence, of the
-mLSTM state's dk, of the SSD state's heads; an MoE rank its block of the
+Every LM cell (smollm-360m, yi-34b, command-r-35b, nemotron-4-15b,
+chameleon-34b; granite-moe-1b-a400m and llama4-maverick-400b-a17b under
+the recipe ``ep``; xlstm-1.3b and zamba2-1.2b under ``ssm``; whisper-base
+under ``dp``) at every shape it runs, ``long_500k`` included, counts the
+partitioned program: parameters, Adam state, batch and decode state are
+laid out as DTensors by the recipe's specs (``registry.
+shard_step_inputs`` and ``shard_decode_inputs``, the JAX package's
+``in_shardings``; ``long_500k``'s decode state by the long-context rule),
+the model code's ``ShardCtx`` hooks redistribute its activations, and
+each rank computes and holds its own block (a decode rank its rows'
+block of the K/V caches' sequence, at ``long_500k`` its block of the
+sequence over ``data`` and of the heads over ``model``, of the mLSTM
+state's dk, of the SSD state's heads; an MoE rank its block of the
 experts, their rows over ``data``, running the expert-parallel body on
-its tokens; a Mamba2 rank its heads).  The other cells (the encdec
-family, and ``long_500k``, whose long-context layout waits for its
-slice) still run the replicated program: every rank runs the whole model
-on the whole batch, and only ``psum_compressed`` and the sharded frame
-split their work, so their ``useful_ratio`` reads about 1 / chips.  Each roofline row's ``note`` names the program it counted
-(after the overrides, if any).  The counts are what one rank really
-runs.
+its tokens; a Mamba2 rank its heads; a whisper rank its rows and, in
+attention, its heads).  The render cell runs the sharded frame.  Each
+roofline row's ``note`` names the program it counted (after the
+overrides, if any).  The counts are what one rank really runs.
 
 Run one cell:     python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh single
 Run everything:   python -m repro_torch.launch.dryrun --all   (subprocess per cell)
@@ -127,14 +126,6 @@ def init_fake_world(world_size: int) -> None:
 # Cell builders: (step, meta arguments, model FLOPs)
 # ---------------------------------------------------------------------------
 
-def partitioned(cfg, shape) -> bool:
-    """Whether the cell runs the partitioned program (every family but
-    encdec, at the train, prefill and decode shapes; not the long-context
-    layout)."""
-    return (cfg.family in ('dense', 'vlm', 'moe', 'ssm', 'hybrid')
-            and shape.name != 'long_500k')
-
-
 def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
     cfg = _opt_overrides(get_config(arch), opt)
     shape = SHAPES[shape_name]
@@ -144,7 +135,7 @@ def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
 
     params = registry.abstract_params(cfg, tp)
     batch = registry.input_specs(cfg, shape)
-    split = partitioned(cfg, shape) and mesh is not None
+    split = mesh is not None
 
     if shape.kind == 'decode':
         # one new token at the last position of a full cache
@@ -153,7 +144,7 @@ def build_lm_cell(arch: str, shape_name: str, mesh, opt: str = ''):
         token = batch['token']
         if split:
             params, state, token = registry.shard_decode_inputs(
-                cfg, mesh, params, state, token)
+                cfg, mesh, params, state, token, long_context=long_context)
         fn = registry.make_decode_step(cfg, ctx)
         return fn, (params, token, state, shape.seq_len - 1), model_flops(
             cfg, shape)
@@ -205,14 +196,10 @@ def _tensor_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def program_of(arch: str, shape_name: str) -> str:
-    """Which program a cell counts: ``partitioned`` (DTensor layouts),
-    ``replicated`` (every rank the whole model) or ``frame`` (the render
-    cell's sharded frame)."""
-    if arch == 'lumina-3dgs':
-        return 'frame'
-    return ('partitioned' if partitioned(get_config(arch), SHAPES[shape_name])
-            else 'replicated')
+def program_of(arch: str) -> str:
+    """Which program a cell counts: ``partitioned`` (an LM's DTensor
+    layouts) or ``frame`` (the render cell's sharded frame)."""
+    return 'frame' if arch == 'lumina-3dgs' else 'partitioned'
 
 
 def dry_run_mesh(mesh_kind: str, program: str):
@@ -220,8 +207,9 @@ def dry_run_mesh(mesh_kind: str, program: str):
     has the card's device type, ``cuda``, and needs no card (the fake group
     moves nothing, every tensor lies on ``meta``): the type picks
     DTensor's redistributions, the card's all-to-all where a CPU mesh
-    falls back to an all-gather and a chunk.  The other cells' code places
-    plain tensors on the mesh's device, so theirs is the CPU's."""
+    falls back to an all-gather and a chunk.  The render cell's code
+    places plain tensors on the mesh's device, so its mesh is the
+    CPU's."""
     multi = mesh_kind == 'multi'
     if program != 'partitioned':
         return make_production_mesh(multi_pod=multi, device='cpu')
@@ -242,7 +230,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     chips = MESH_RANKS[mesh_kind]
     init_fake_world(chips)
     try:
-        program = program_of(arch, shape_name)
+        program = program_of(arch)
         mesh = dry_run_mesh(mesh_kind, program)
         if arch == 'lumina-3dgs':
             fn, args, mf = build_render_cell(shape_name, mesh, opt)

@@ -26,7 +26,10 @@ into a DTensor op, the layout is explicit:
     ``repeat_kv`` run on each rank's blocks (``local_map``) in a layout
     said in the code: a column-sharded (TP) weight takes its input with
     the sequence gathered, a replicated one keeps the input's shards;
-    ``repeat_kv`` gathers the kv heads whole first; ``embed`` is
+    ``repeat_kv`` gathers the kv heads whole first, unless each block of
+    q heads maps into the same block of kv heads (the long-context
+    cache's heads over ``model``), where each rank gathers from its own
+    block; ``embed`` is
     ``F.embedding``; the projections back into it (``merge``) take the
     weight with its rows sharded as the input's last axis;
   * ``flash_attention`` runs on each rank's block (``attend``): the
@@ -35,14 +38,18 @@ into a DTensor op, the layout is explicit:
   * the decode step's K/V write at ``pos`` (``write_at``) runs on each
     rank's block of a sequence-sharded cache (``local_map``): only the
     rank whose block holds the position writes, in place;
-  * the decode attention (``decode_attend``) never gathers the cache: q
-    is laid out with the cache's batch and its heads whole, each rank
-    scores its block of the sequence masked by global positions
-    (``local_map``; ``torch.arange`` would compare local indices), and
-    the softmax is the flash-decoding combine, a max and two sums reduced
-    across ranks where they are made (``torch.softmax`` on a sharded
-    sequence would gather it); the weighted V is a ``local_map`` einsum
-    with a pending sum;
+  * the decode attention (``decode_attend``) never gathers the cache's
+    sequence: q is laid out with the cache's batch, heads and head_dim,
+    each rank scores its block of the sequence masked by global positions
+    (``local_map``; ``torch.arange`` would compare local indices), the
+    partial scores of a split head_dim (the long-context layout where
+    ``model`` does not divide the kv heads) reduced before the mask, and
+    the softmax is the flash-decoding combine over the mesh dimension
+    that splits the sequence (``model``, or ``data`` in the long-context
+    layout), a max and two sums reduced across ranks where they are made
+    (``torch.softmax`` on a sharded sequence would gather it); the
+    weighted V is a ``local_map`` einsum with a pending sum, its split
+    head_dim laid out as heads (``bthd``) before the heads are merged;
   * the unembedding is laid out with its vocab over ``model`` (``ctx.dv``)
     before the logits' matmul, as GSPMD would carry ``btv`` back into it;
   * ``rmsnorm`` over a sharded last axis (an mLSTM's dv) reduces the sum
@@ -334,28 +341,50 @@ def _qkv(p, x, cfg, positions, ctx: ShardCtx = NO_CTX):
     return ctx.bthd(q), k, v, hp, hd
 
 
+def _kv_index(lo: int, hi: int, n_real: int, hkv: int,
+              device) -> torch.Tensor:
+    """The kv head of each q head ``lo..hi-1`` (``repeat_kv``'s map): real
+    q head i takes ``i * Hkv // n_real``, padded ones clamp to the last
+    real head's."""
+    return (torch.clamp(torch.arange(lo, hi, device=device), max=n_real - 1)
+            * hkv // n_real)
+
+
 def repeat_kv(k: torch.Tensor, hp: int,
               n_heads: Optional[int] = None) -> torch.Tensor:
     """[B, T, Hkv, hd] -> [B, T, Hp, hd]: GQA head-group expansion by gather.
 
     Real q head i attends kv head ``i * Hkv // n_heads``; padded q heads
-    (i >= n_heads, masked downstream) clamp to the last kv head.  A
-    DTensor's heads are gathered whole, then each rank gathers its block
-    (``local_map``): DTensor's strategy for the gather's backward
-    (``index_put`` with ``None`` indices) fails on some torch versions.
+    (i >= n_heads, masked downstream) clamp to the last kv head.  On a
+    DTensor, on each rank's block (``local_map``): DTensor's strategy for
+    the gather's backward (``index_put`` with ``None`` indices) fails on
+    some torch versions.  Where the heads are split and each block of q
+    heads maps into the same block of kv heads (the long-context cache,
+    zamba2's 32 heads on 32), each rank gathers from its own block and the
+    q heads come out split as the kv heads; otherwise the kv heads are
+    gathered whole first.
     """
-    if hasattr(k, 'placements'):
-        from torch.distributed.tensor.experimental import local_map
-        k = unshard_dims(k, (2,))
-        pl = list(k.placements)
-        return local_map(lambda t: repeat_kv(t, hp, n_heads),
-                         out_placements=pl, in_placements=(pl,),
-                         device_mesh=k.device_mesh)(k)
     hkv = k.shape[2]
     n_real = n_heads or hp
-    idx = (torch.clamp(torch.arange(hp, device=k.device), max=n_real - 1)
-           * hkv // n_real)
-    return k[:, :, idx, :]
+    if not hasattr(k, 'placements'):
+        return k[:, :, _kv_index(0, hp, n_real, hkv, k.device), :]
+    from torch.distributed.tensor.experimental import local_map
+    n = math.prod(k.device_mesh.size(i)
+                  for i, p in enumerate(k.placements) if p.is_shard(2))
+    bq, bk = hp // n, hkv // n
+    if n > 1 and hp % n == 0 and all(
+            b * bk <= j < (b + 1) * bk for b in range(n)
+            for j in _kv_index(b * bq, (b + 1) * bq, n_real, hkv,
+                               'cpu').tolist()):
+        start, _ = local_range(k, 2)
+        lo = start // bk * bq
+    else:
+        k, start, lo, bq = unshard_dims(k, (2,)), 0, 0, hp
+    pl = list(k.placements)
+    idx = _kv_index(lo, lo + bq, n_real, hkv, k.device)
+    idx = idx - start if start else idx       # into the rank's own block
+    return local_map(lambda t: t[:, :, idx, :], out_placements=pl,
+                     in_placements=(pl,), device_mesh=k.device_mesh)(k)
 
 
 def _bf16_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -482,57 +511,84 @@ def write_at(cache: torch.Tensor, new: torch.Tensor, at: int) -> torch.Tensor:
                      device_mesh=cache.device_mesh)(cache, new)
 
 
-def _decode_scores(q, kr, pos: int, start: int = 0) -> torch.Tensor:
+def _decode_dots(q, kr, scale: float) -> torch.Tensor:
     """float32 scores [B, Hp, 1, T] of q [B, 1, Hp, hd] against kr [B, T,
-    Hp, hd] holding global positions ``start``.., those after ``pos`` at
-    ``NEG_INF``."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    sc = torch.einsum('bqhd,bkhd->bhqk', q.float() * scale, kr.float())
-    kpos = torch.arange(start, start + kr.shape[1], device=q.device)
-    return torch.where(kpos[None, None, None, :] <= pos, sc, NEG_INF)
+    Hp, hd], unmasked; ``scale`` is 1 / sqrt(hd) of the whole head."""
+    return torch.einsum('bqhd,bkhd->bhqk', q.float() * scale, kr.float())
+
+
+def _mask_past(sc, pos: int, start: int = 0) -> torch.Tensor:
+    """Scores [..., T] holding global positions ``start``.., those after
+    ``pos`` at ``NEG_INF``."""
+    kpos = torch.arange(start, start + sc.shape[-1], device=sc.device)
+    return torch.where(kpos <= pos, sc, NEG_INF)
 
 
 def _decode_softmax(q, kr, vr, pos: int) -> torch.Tensor:
     """The whole sequence's float32 attention [B, 1, Hp, hd]."""
-    w = torch.softmax(_decode_scores(q, kr, pos), dim=-1)
+    sc = _decode_dots(q, kr, 1.0 / math.sqrt(q.shape[-1]))
+    w = torch.softmax(_mask_past(sc, pos), dim=-1)
     return torch.einsum('bhqk,bkhd->bqhd', w, vr.float())
+
+
+def _score_placement(c):
+    """The placement of the scores [B, Hp, 1, T] on a mesh dimension where
+    the cache [B, T, Hp, hd] has ``c``: batch and heads as the cache's,
+    the sequence on the last axis, a pending sum where head_dim is
+    split."""
+    from torch.distributed.tensor import Partial, Shard
+    for cache_dim, score_dim in ((0, 0), (1, 3), (2, 1)):
+        if c.is_shard(cache_dim):
+            return Shard(score_dim)
+    return Partial() if c.is_shard(3) else c
 
 
 def decode_attend(q, kr, vr, pos: int) -> torch.Tensor:
     """float32 attention [B, 1, Hp, hd] of one query q [B, 1, Hp, hd] over
     kr, vr [B, T, Hp, hd] at positions <= ``pos``.
 
-    On DTensors the cache is never gathered.  q is laid out with the
-    cache's batch and its heads whole.  Where the cache's sequence is whole
-    on each rank, each rank runs the plain softmax on its rows
-    (``local_map``).  Where it is sharded, the flash-decoding combine: each
-    rank scores its block, masked by global positions; the max is reduced
-    across ranks, the weights exponentiated; the weights' sum and the
-    weighted V are summed across ranks and divided once.  Raises on a
-    cache whose heads or ``head_dim`` are sharded."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    On DTensors the cache's sequence is never gathered.  q is laid out
+    with the cache's batch, heads and head_dim, its sequence whole.  Where
+    the cache's sequence and head_dim are whole on each rank, each rank
+    runs the plain softmax on its rows and heads (``local_map``).  Else
+    each rank scores its block: a split head_dim makes the scores a
+    pending sum, reduced before the mask and the softmax; the mask reads
+    global positions.  Over a split sequence (``model`` in the flash-
+    decoding layout, ``data`` in the long-context one) the softmax is the
+    flash-decoding combine: the max is reduced across ranks, the weights
+    exponentiated, their sum and the weighted V summed across ranks and
+    divided once.  The result keeps the cache's batch, heads and
+    head_dim layout.  Raises on k and v in two layouts."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     if not isinstance(kr, DTensor):
         return _decode_softmax(q, kr, vr, pos)
     from torch.distributed.tensor.experimental import local_map
     mesh, kv_pl = kr.device_mesh, list(kr.placements)
-    if tuple(vr.placements) != tuple(kv_pl) or any(
-            c.is_shard(2) or c.is_shard(3) for c in kv_pl):
-        raise ValueError('decode_attend needs k and v in one layout that '
-                         'shards only batch and sequence, got '
-                         f'{tuple(kv_pl)} and {tuple(vr.placements)}')
+    if tuple(vr.placements) != tuple(kv_pl) or any(c.is_partial()
+                                                   for c in kv_pl):
+        raise ValueError('decode_attend needs k and v in one layout of '
+                         f'shards, got {tuple(kv_pl)} and '
+                         f'{tuple(vr.placements)}')
     q_pl = [Replicate() if c.is_shard(1) else c for c in kv_pl]
     if tuple(q.placements) != tuple(q_pl):
         q = q.redistribute(mesh, q_pl)
-    if q_pl == kv_pl:        # the sequence whole on each rank
+    split_hd = any(c.is_shard(3) for c in kv_pl)
+    if q_pl == kv_pl and not split_hd:    # the sequence whole on each rank
         return local_map(lambda q, k, v: _decode_softmax(q, k, v, pos),
                          out_placements=q_pl, in_placements=(q_pl, kv_pl,
                                                              kv_pl),
                          device_mesh=mesh)(q, kr, vr)
     start, _ = local_range(kr, 1)
-    sc_pl = [Shard(3) if c.is_shard(1) else c for c in kv_pl]
-    sc = local_map(lambda q, k: _decode_scores(q, k, pos, start),
-                   out_placements=sc_pl, in_placements=(q_pl, kv_pl),
-                   device_mesh=mesh)(q, kr)                  # [B, Hp, 1, T]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # each rank's block of the scores [B, Hp, 1, T]; over a split head_dim
+    # partial dot products, summed before the mask and the softmax
+    sc = reduce_partials(local_map(
+        lambda q, k: _decode_dots(q, k, scale),
+        out_placements=[_score_placement(c) for c in kv_pl],
+        in_placements=(q_pl, kv_pl), device_mesh=mesh)(q, kr))
+    sc_pl = list(sc.placements)
+    sc = local_map(lambda s: _mask_past(s, pos, start), out_placements=sc_pl,
+                   in_placements=(sc_pl,), device_mesh=mesh)(sc)
     m = reduce_partials(sc.amax(dim=-1, keepdim=True))
     w = torch.exp(sc - m)
     den = reduce_partials(w.sum(dim=-1))                      # [B, Hp, 1]
@@ -571,7 +627,12 @@ def attention_decode(p, x, cfg, cache, pos: int, ctx: ShardCtx = NO_CTX):
 
     kr = repeat_kv(k_cache, hp, cfg.n_heads)       # [B, T, Hp, hd]
     vr = repeat_kv(v_cache, hp, cfg.n_heads)
-    out = _mask_heads(decode_attend(q, kr, vr, pos).to(x.dtype), cfg.n_heads)
+    out = decode_attend(q, kr, vr, pos).to(x.dtype)
+    if any(c.is_shard(3) for c in getattr(out, 'placements', ())):
+        # a long-context cache's split head_dim laid out as heads before
+        # the heads are merged (a reshape would interleave the blocks)
+        out = ctx.bthd(out)
+    out = _mask_heads(out, cfg.n_heads)
     return ctx.btd(merge(out.reshape(b, 1, hp * hd), p['wo'])), (k_cache,
                                                                   v_cache)
 

@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime import spmd
-from ..runtime.sharding import (P, ShardCtx, as_dtensor_like, batch_axes,
-                                mesh_axes, spec_to_placements)
+from ..runtime.sharding import (P, ShardCtx, batch_axes, mesh_axes,
+                                spec_to_placements)
 from . import layers as L
 from .params import LM, positions
 
@@ -392,10 +392,8 @@ class MoE(LM):
         ``ctx``'s mesh the MoE FFN may run expert-parallel (``moe_ffn``);
         on tokens laid out as a DTensor the whole model runs partitioned,
         the positions laid out as the tokens."""
-        b, s = tokens.shape
         x = L.embed(self.tok, tokens, ctx)
-        pos = as_dtensor_like(positions(b, s, tokens.device), tokens,
-                              getattr(tokens, 'placements', None))
+        pos = positions(tokens)
         drops = []
         for p in self.blocks:
             x, drop = L.remat(self.cfg.remat, self._super_block, p, x, pos,

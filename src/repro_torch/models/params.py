@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..runtime.sharding import ShardCtx
+from ..runtime.sharding import ShardCtx, as_dtensor_like
 from . import layers as L
 
 
@@ -60,6 +60,11 @@ class LM(ParamTree):
         return L.logits(self.tok, x, self.cfg, ctx)
 
 
-def positions(b: int, s: int, device) -> torch.Tensor:
-    """Positions 0..s-1 for each of ``b`` rows, [B, S] int32."""
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+def positions(ref: torch.Tensor) -> torch.Tensor:
+    """Positions 0..S-1 of each row of a batch ``ref`` [B, S, ...], [B, S]
+    int32, laid out as ``ref`` when it is a DTensor (each rank makes its
+    own block)."""
+    b, s = ref.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32, device=ref.device)[None]
+    return as_dtensor_like(pos.expand(b, s), ref,
+                           getattr(ref, 'placements', None))

@@ -17,13 +17,14 @@ partition specs:
 parameters, its Adam state and a batch as DTensors by those specs, and
 ``shard_decode_inputs`` the parameters, the decode state and the token,
 as the JAX package's dry run gives them to ``jax.jit`` as
-``in_shardings``; the train, prefill and decode steps of the dense, vlm,
-moe, ssm and hybrid families run partitioned on such a layout (moe's
-under the recipe ``ep``: the experts over ``model`` and their rows over
-``data``, the dense submodules by the ``tp`` table; xlstm's and zamba2's
-under ``ssm``: the ``tp`` table, the recurrent states by
-``decode_state_specs``), and as before on plain tensors.  The encdec
-family runs replicated.
+``in_shardings``; the train, prefill and decode steps of every family
+run partitioned on such a layout (moe's under the recipe ``ep``: the
+experts over ``model`` and their rows over ``data``, the dense
+submodules by the ``tp`` table; xlstm's and zamba2's under ``ssm``: the
+``tp`` table, the recurrent states by ``decode_state_specs``, at
+``long_500k`` zamba2's caches by its long-context rule; whisper's under
+``dp``: the parameters replicated, the self and cross K/V pairs by the
+dense rule), and as before on plain tensors.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..configs.base import ModelConfig, ShapeConfig
+from ..configs.base import LONG_CONTEXT_FAMILIES, ModelConfig, ShapeConfig
 from ..device import resolve_device
 from ..optim import adam
 from ..runtime.sharding import (P, ShardCtx, adaptive_spec, all_axes,
@@ -132,7 +133,7 @@ def make_prefill(cfg: ModelConfig, ctx: ShardCtx):
     def prefill(params, batch):
         if cfg.family == 'encdec':
             h = params.decode_train(batch['tokens'],
-                                    params.encode(batch['frames']))
+                                    params.encode(batch['frames'], ctx), ctx)
         elif cfg.family == 'moe':
             h, _ = params(batch['tokens'], ctx)
         else:
@@ -148,7 +149,7 @@ def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
     if cfg.family == 'encdec':
         def step(params, token, state, pos: int):
             lg, caches = params.decode_step(token, state['self'],
-                                            state['cross'], pos)
+                                            state['cross'], pos, ctx)
             return lg, dict(state, self=caches)
         return step
 
@@ -361,11 +362,8 @@ def shard_step_inputs(cfg: ModelConfig, mesh, params, opt_state=None,
     return params, opt_state, batch
 
 
-_PARTITIONED_DECODE = ('dense', 'vlm', 'moe', 'ssm', 'hybrid')
-
-
 def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
-                        token=None):
+                        token=None, *, long_context: bool = False):
     """The decode step's inputs laid out on ``mesh`` as DTensors, the JAX
     package's ``in_shardings`` for it: the model ``params`` as
     ``shard_step_inputs`` lays it out, the decode state by
@@ -375,20 +373,24 @@ def shard_decode_inputs(cfg: ModelConfig, mesh, params=None, state=None,
     own block, in storage of its own.  The dense, vlm and moe decode steps
     run on this layout (the stacked K/V caches [L, B, T, Hkv, hd], moe's
     [n_super, n_attn, B, T, Hkv, hd]: batch over pod x data, sequence over
-    'model'), and so do the ssm and hybrid ones (xlstm's ``{'mlstm',
-    'slstm_h', 'slstm_c'}``: batch, then heads, else dk, over 'model', the
-    sLSTM's di; zamba2's ``{'ssm': {'ssm', 'conv'}, 'kv_k', 'kv_v'}``:
-    the SSD state's heads, the conv window's channels, the caches'
-    sequence); encdec raises.  Returns ``(params, state, token)``."""
-    if cfg.family not in _PARTITIONED_DECODE:
-        raise ValueError(f'{cfg.name}: the {cfg.family} decode step runs '
-                         'replicated; only dense, vlm, moe, ssm and hybrid '
-                         'run partitioned')
+    'model'), and so do the ssm, hybrid and encdec ones (xlstm's
+    ``{'mlstm', 'slstm_h', 'slstm_c'}``: batch, then heads, else dk, over
+    'model', the sLSTM's di; zamba2's ``{'ssm': {'ssm', 'conv'}, 'kv_k',
+    'kv_v'}``: the SSD state's heads, the conv window's channels, the
+    caches' sequence; whisper's ``{'self', 'cross'}`` K/V pairs as the
+    dense caches).  ``long_context`` (the ``long_500k`` cells, families
+    of ``LONG_CONTEXT_FAMILIES`` only, else it raises) lays the caches out
+    by the long-context rule: the sequence over 'data', the heads, else
+    head_dim, over 'model'.  Returns ``(params, state, token)``."""
+    if long_context and cfg.family not in LONG_CONTEXT_FAMILIES:
+        raise ValueError(f'{cfg.name}: the long-context layout is for the '
+                         f'{" and ".join(LONG_CONTEXT_FAMILIES)} families, '
+                         f'not {cfg.family}')
     if params is not None:
         params = shard_step_inputs(cfg, mesh, params)[0]
     if state is not None:
         state = distribute_tree(state, decode_state_specs(
-            cfg, state, mesh, long_context=False), mesh)
+            cfg, state, mesh, long_context=long_context), mesh)
     if token is not None:
         token = distribute_tree(token, batch_shardings(cfg, mesh, token),
                                 mesh)

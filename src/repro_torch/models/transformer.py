@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..runtime.sharding import ShardCtx, as_dtensor_like, unshard_dims
+from ..runtime.sharding import ShardCtx, unshard_dims
 from . import layers as L
+from .params import positions
 
 
 class Block(nn.Module):
@@ -75,24 +76,15 @@ class Transformer(nn.Module):
         self.tok = nn.ParameterDict(params['tok'])
         self.blocks = nn.ModuleList(Block(p) for p in params['blocks'])
 
-    def _positions(self, tokens):
-        """Positions 0..S-1 of each row [B, S] int32, laid out as
-        ``tokens`` when it is a DTensor (each rank makes its own block)."""
-        b, s = tokens.shape
-        pos = torch.arange(s, dtype=torch.int32,
-                           device=tokens.device)[None].expand(b, s)
-        return as_dtensor_like(pos, tokens, getattr(tokens, 'placements',
-                                                    None))
-
     def forward(self, tokens: torch.Tensor,
                 ctx: ShardCtx = L.NO_CTX) -> torch.Tensor:
         """tokens [B, S] -> final hidden [B, S, D]; with ``cfg.remat`` each
         block's activations are recomputed in the backward pass."""
         x = L.embed(self.tok, tokens, ctx)
-        positions = self._positions(tokens)
+        pos = positions(tokens)
         for blk in self.blocks:
-            x = L.remat(self.cfg.remat, blk.train_block, x, self.cfg,
-                        positions, ctx)
+            x = L.remat(self.cfg.remat, blk.train_block, x, self.cfg, pos,
+                        ctx)
         return x
 
     def logits(self, x: torch.Tensor,
@@ -104,10 +96,10 @@ class Transformer(nn.Module):
         """tokens [B, S] -> (logits of the last position [B, V], caches):
         the caches are the K and V of every layer, [L, B, S, Hkv, hd]."""
         x = L.embed(self.tok, tokens, ctx)
-        positions = self._positions(tokens)
+        pos = positions(tokens)
         ks, vs = [], []
         for blk in self.blocks:
-            x, (k, v) = blk.prefill_block(x, self.cfg, positions, ctx)
+            x, (k, v) = blk.prefill_block(x, self.cfg, pos, ctx)
             ks.append(k)
             vs.append(v)
         # the sequence gathered whole before the last position is sliced

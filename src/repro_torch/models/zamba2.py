@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime.sharding import ShardCtx, as_dtensor_like
+from ..runtime.sharding import ShardCtx
 from . import layers as L
 from . import mamba2
 from .params import LM, positions
@@ -62,10 +62,8 @@ class Zamba2(LM):
         tokens laid out as a DTensor the positions are laid out as the
         tokens."""
         cfg = self.cfg
-        b, s = tokens.shape
         x = L.embed(self.tok, tokens, ctx)
-        pos = as_dtensor_like(positions(b, s, tokens.device), tokens,
-                              getattr(tokens, 'placements', None))
+        pos = positions(tokens)
         n_pts = len(_attn_points(cfg))
         p = self.shared
         for si, (lo, hi) in enumerate(_segments(cfg)):

@@ -23,10 +23,10 @@ serve every shape.  A spec is the port's own ``P``, a tuple of entries
 The port runs one process per rank, every rank the same program.
 ``distribute_tree`` lays out a tree of values as DTensors by a tree of
 specs, the counterpart of the JAX package's ``device_put`` with a
-``NamedSharding``: the dense, vlm, moe, ssm and hybrid models'
-parameters, Adam state, batch and decode state
-(``models.registry.shard_step_inputs`` and ``shard_decode_inputs``).  On such a layout the model code's
-``ShardCtx`` hooks are the counterpart of the JAX package's
+``NamedSharding``: every LM family's parameters, Adam state, batch and
+decode state (``models.registry.shard_step_inputs`` and
+``shard_decode_inputs``).  On such a layout the model code's ``ShardCtx``
+hooks are the counterpart of the JAX package's
 ``with_sharding_constraint``: a plain tensor passes unchanged, a
 ``DTensor`` is redistributed to the hook's layout, and DTensor's own
 sharding propagation partitions the ops between them as GSPMD does; the
@@ -34,11 +34,10 @@ expert-parallel MoE body, a ``shard_map`` in the JAX package, takes each
 rank's blocks of its DTensor inputs and runs real collectives
 (``runtime.spmd``), and the recurrent cores (the chunked linear
 attention, its decode step, the sLSTM scan, a Mamba2 layer's heads) run
-on each rank's blocks (``local_map``).  The encdec family still runs
-every rank on replicated values; the bodies that change what is computed (the
-compressed all-reduce, GPipe, the sharded frame, and the MoE body when
-its inputs are replicated) slice their rank's block and run real
-collectives.
+on each rank's blocks (``local_map``).  The bodies that change what is
+computed (the compressed all-reduce, GPipe, the sharded frame, and the
+MoE body when its inputs are replicated) slice their rank's block and
+run real collectives.
 """
 from __future__ import annotations
 

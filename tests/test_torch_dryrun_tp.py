@@ -23,9 +23,12 @@ CPU with ``fake`` process groups (nothing is sent, every tensor on
     collective bytes a rank stay below what gathering one layer's K and V
     sequence whole would move (1.07e9 B), so no rank gathers the cache;
     its note reads ``partitioned``.
-  * ``layers.decode_attend`` raises on a cache whose heads are sharded,
-    and ``registry.shard_decode_inputs`` on the family whose decode runs
-    replicated (encdec: whisper-base).
+  * ``layers.decode_attend`` on a long-context cache (the sequence over
+    ``data``, the heads or head_dim over ``model``) moves less than one
+    rank's block of k in its collectives: the cache's sequence is never
+    gathered; ``registry.shard_decode_inputs`` lays out whisper-base's
+    decode state, and raises on a long-context request outside
+    ``LONG_CONTEXT_FAMILIES``.
 """
 import dataclasses
 import math
@@ -122,21 +125,52 @@ def test_dtensor_all_to_all_on_a_cuda_mesh(fake4):
     assert got['flops'] == 0
 
 
-def test_decode_attend_refuses_a_head_sharded_cache(fake4):
-    """The decode attention combines across ranks only over a sharded
-    sequence; a cache whose heads are sharded raises, never gathers."""
+@pytest.mark.parametrize('heads,split', [(4, 2), (3, 3)])
+def test_decode_attend_refuses_a_head_sharded_cache(fake4, heads, split):
+    """The long-context cache [1, 64, H, 32]: the sequence over ``data``,
+    the heads (4) or head_dim (3 heads) over ``model``.  Its decode
+    attention is counted on the fake group: every collective it runs
+    moves less than one rank's block of k, so none gathers the cache's
+    sequence, and the result keeps the heads' or head_dim's split."""
     mesh = init_device_mesh('cpu', (2, 2), mesh_dim_names=AXES)
-    q = meta(mesh, (4, 1, 4, 32), [Shard(0), Replicate()])
-    kv = meta(mesh, (4, 16, 4, 32), [Shard(0), Shard(2)])
-    with pytest.raises(ValueError, match='shards only batch and sequence'):
-        layers.decode_attend(q, kv, kv, 3)
+    kv_pl = [Shard(1), Shard(split)]
+    q = meta(mesh, (1, 1, 4, 32), [Replicate(), Shard(2)])
+    kv = meta(mesh, (1, 64, heads, 32), kv_pl)
+    kv = layers.repeat_kv(kv, 4, heads)   # block-local: no head gather
+    assert list(kv.placements) == kv_pl
+    out = []
+    got = op_count.analyze(lambda: out.append(
+        layers.decode_attend(q, kv, kv, 40)))
+    # half the sequence, half of the 4 q heads' 4 x 32 values, float32
+    block = kv.to_local().numel() * 4
+    assert block == 32 * 2 * 32 * 4
+    assert 0 < got['collective_bytes'] < block, got
+    assert list(out[0].placements) == [Replicate(), Shard(split)]
+    assert out[0].shape == (1, 1, 4, 32)
 
 
-def test_encdec_ssm_and_hybrid_decode_inputs_are_not_laid_out():
-    """Only encdec's decode still runs replicated (ssm and hybrid lay out
-    their states: ``tests/test_torch_dryrun_ssm.py``)."""
-    with pytest.raises(ValueError, match='runs replicated'):
-        registry.shard_decode_inputs(get_config('whisper-base'), None)
+def test_encdec_ssm_and_hybrid_decode_inputs_are_not_laid_out(fake4):
+    """Every family's decode inputs are laid out now (ssm and hybrid:
+    ``tests/test_torch_dryrun_ssm.py``): whisper's self and cross K/V
+    pairs [L, B, T, Hkv, hd] by the dense rule, batch over ``data`` and
+    sequence over ``model``.  The long-context layout is for the families
+    of ``LONG_CONTEXT_FAMILIES`` only; another family asking for it
+    raises."""
+    mesh = init_device_mesh('cpu', (2, 2), mesh_dim_names=AXES)
+    cfg = get_config('whisper-base').reduced()
+    state = registry.abstract_decode_state(cfg, 4, 16, 2)
+    _, state, token = registry.shard_decode_inputs(
+        cfg, mesh, state=state, token=torch.empty((4, 1), dtype=torch.int32,
+                                                  device='meta'))
+    for pair in (state['self'], state['cross']):
+        for t in pair:
+            assert list(t.placements) == [Shard(1), Shard(2)]
+            assert tuple(t.to_local().shape) == (2, 2, 8, 2, 32)
+    assert list(token.placements) == [Shard(0), Replicate()]
+    for arch in ('whisper-base', 'smollm-360m', 'granite-moe-1b-a400m'):
+        with pytest.raises(ValueError, match='long-context layout'):
+            registry.shard_decode_inputs(get_config(arch), mesh,
+                                         long_context=True)
 
 
 class Mesh:

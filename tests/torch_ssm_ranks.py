@@ -37,16 +37,18 @@ def flat(tree, prefix: str = '') -> dict:
     return out
 
 
-def _train(cfg, mesh, arrays: dict, arch: str, model, plain) -> dict:
+def _train(cfg, mesh, arrays: dict, arch: str, model, plain,
+           prefill: dict = None) -> dict:
     """The prefill's logits (gathered), each step's loss and gradient norm
     (the replicated values, and their placements), every parameter's and
     moment's local block shape, the trained state gathered, and the
-    unpartitioned loss of the first batch."""
+    unpartitioned loss of the first batch.  ``prefill``: the prefill's
+    batch (default: the oracle's ``prefill_tokens``)."""
     from repro_torch.models import registry
     from repro_torch.optim import adam, schedule
     ctx = registry.make_ctx(mesh, cfg)
     _, _, pf = registry.shard_step_inputs(
-        cfg, mesh, None, batch={'tokens': _tokens(
+        cfg, mesh, None, batch=prefill or {'tokens': _tokens(
             arrays, f'{arch}/prefill_tokens')})
     logits = registry.make_prefill(cfg, ctx)(model, pf)
 
