@@ -193,8 +193,16 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    over 989 TFLOP/s; 22 B a parameter of Adam traffic plus the weights
    read twice, over 3.35 TB/s), tokens/s, the host's clock, and the
    kernel time, launches and device-busy share of one step from
-   ``torch.profiler`` tracing the device alone.  No hand-written kernel
-   lies on this path;
+   ``torch.profiler`` tracing the device alone.  Then (f), the sLSTM
+   walk in chunks (``slstm_chunk_check``): one sLSTM block of xlstm-1.3b
+   at its published widths, bfloat16, on 16 x 1,024 tokens (four
+   256-step chunks), forward and backward: the forward with grad on
+   equal to a no-grad forward bit for bit, the bytes that autograd saves
+   during the walk's forward (less its inputs') under one chunk's
+   float32 intermediates (its first chunk walked without a checkpoint)
+   plus the carries and the walk's float32 copy of the recurrent
+   weights, every gradient finite.  No hand-written kernel lies
+   on this path;
 13. mesh (``mesh_phase``): a one-rank NCCL process group and a (data 1,
     model 1) ``DeviceMesh`` on the card: (a) granite-moe-1b-a400m at its
     published widths cut to 2 layers, bfloat16, one train step of 8 x 256
@@ -427,6 +435,9 @@ TRAIN_LEAF_L2 = 3e-2
 TRAIN_REMAT_ARCHS = ('smollm-360m',)
 TRAIN_TIMED_STEPS = 3
 ADAM_BYTES = 22
+# the LM train phase's (f): one sLSTM block of SLSTM_ARCH at its published
+# widths on SLSTM_ROWS x SLSTM_SEQ tokens (SLSTM_SEQ / 256 chunks)
+SLSTM_ARCH, SLSTM_ROWS, SLSTM_SEQ = 'xlstm-1.3b', 16, 1024
 # the mesh phase on a one-rank (data 1, model 1) mesh of this card: (a)
 # MESH_ARCH at its published widths and MESH_DEPTH layers (lm_train_phase
 # (c)'s depth) trains one step of TRAIN_BATCH x TRAIN_SEQ with the mesh
@@ -3778,6 +3789,65 @@ def lm_train_card_vs_cpu(pkg, base, cfg_c, arch: str) -> dict:
     return out
 
 
+def slstm_chunk_check(pkg) -> dict:
+    """(f) of the LM train phase: the sLSTM walk in chunks on the card."""
+    import torch
+    t0 = time.perf_counter()
+    xl = pkg.xlstm
+    base = pkg.configs.get_config(SLSTM_ARCH)
+    cfg = base if LM_FULL else base.reduced()
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    p = {k: v.requires_grad_() for k, v in
+         xl.slstm_params(gen, cfg, dtype).items()}
+    x = torch.randn((SLSTM_ROWS, SLSTM_SEQ, cfg.d_model), generator=gen,
+                    device=DEVICE, dtype=dtype).requires_grad_()
+    di, heads = 2 * cfg.d_model, cfg.n_heads
+    w = xl.slstm_chunk(SLSTM_SEQ)
+    with torch.no_grad():
+        y_ng = xl.slstm_block(p, x, cfg)
+    y = xl.slstm_block(p, x, cfg)
+    grads = torch.autograd.grad(y.float().square().mean(),
+                                [x] + list(p.values()))
+    # gate 2 on the walk alone, from the block's own pre-activations
+    pre = pkg.layers.project(pkg.layers.rmsnorm(x, p['ln'], cfg.norm_eps),
+                             p['w_x'])[0].detach().requires_grad_()
+    w_h = p['w_h_blocks']
+    w32 = w_h.detach().float().requires_grad_()
+    ins = (pre, w_h, w32)
+    saved_bytes = pkg.op_count.saved_bytes
+    walk, hs = saved_bytes(xl._slstm_scan, pre, w_h, heads, inputs=ins)
+    zero = torch.zeros((SLSTM_ROWS, di), device=DEVICE)
+    one, _ = saved_bytes(xl._slstm_walk, pre[:, :w], zero, zero, w32,
+                         heads, inputs=ins)
+    carries = (SLSTM_SEQ // w) * 2 * SLSTM_ROWS * di * 4
+    # the walk's float32 copy of the recurrent weights, made once a walk
+    # and an input of every chunk
+    w32_bytes = 0 if w_h.dtype == torch.float32 else w32.numel() * 4
+    if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+    out = {'arch': cfg.name, 'rows': SLSTM_ROWS, 'seq': SLSTM_SEQ,
+           'chunk': w, 'bit_for_bit': bool(torch.equal(y, y_ng)),
+           'walk_saved_bytes': walk, 'one_chunk_bytes': one,
+           'carry_bytes': carries, 'w32_bytes': w32_bytes,
+           'grads_finite': all(bool(torch.isfinite(g).all()) for g in grads),
+           'seconds': time.perf_counter() - t0}
+    print('lm train (f) the sLSTM walk in chunks (saved bytes: autograd\'s '
+          'storages during the forward, less its inputs\'): '
+          + json.dumps(out), flush=True)
+    del grads, hs, y, y_ng
+    if not out['bit_for_bit']:
+        fail('lm train (f): the sLSTM forward with grad on differs from the '
+             'no-grad forward')
+    if not walk < one + carries + w32_bytes:
+        fail(f'lm train (f): the sLSTM walk saved {walk} bytes, more than '
+             f'one chunk\'s {one} plus the carries\' {carries} and the '
+             f'float32 weights\' {w32_bytes}')
+    if not out['grads_finite']:
+        fail('lm train (f): a gradient of the sLSTM block is not finite')
+    return out
+
+
 def lm_train_phase(pkg, arch: str, cpu_depth: int | None) -> dict:
     """LM training of ``arch`` at its full width and depth: (a) the
     trainer, (b) learning on one batch from a fresh draw of the weights
@@ -4654,6 +4724,7 @@ def load_package(src: pathlib.Path):
     import repro_torch.models.layers as layers
     import repro_torch.models.moe as moe
     import repro_torch.models.registry as registry
+    import repro_torch.models.xlstm as xlstm
     import repro_torch.data.tokens as tokens
     import repro_torch.optim.adam as adam
     import repro_torch.obs as obs
@@ -4680,7 +4751,7 @@ def load_package(src: pathlib.Path):
         configs=configs, lm_train=lm_train, flops=flops, layers=layers,
         ShapeConfig=ShapeConfig, render_dist=render_dist, mesh=mesh,
         compression=compression, elastic=elastic, sharding=sharding,
-        tree=tree, op_count=op_count, roofline=roofline)
+        tree=tree, op_count=op_count, roofline=roofline, xlstm=xlstm)
 
 
 def main() -> int:
@@ -4765,6 +4836,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for arch, _, _, cpu_depth in LM_ARCHS:
         lm_train_phase(pkg, arch, cpu_depth)
+    slstm_chunk_check(pkg)
     print(f'LM train phases took {time.perf_counter() - t0:.1f} s',
           flush=True)
     # the dry runs of analysis (c) run in subprocesses beside the mesh and

@@ -42,7 +42,10 @@ reach the dispatcher: their launches during the call are read from
 bytes, as ``hlo_parse`` counts a ``custom-call``.  Besides, the counter
 tracks the peak of live storage that the call's ops made (freed storages
 leave through a weak reference): the ``meta`` counterpart of XLA's
-``memory_analysis().temp_size_in_bytes``.
+``memory_analysis().temp_size_in_bytes``.  With ``live_at_peak`` it
+also lists what is live when that peak is first reached: each storage
+labelled by the op that made it, its shape, dtype and phase (``forward``,
+or ``backward`` while autograd's engine runs, recomputation included).
 
 Shapes are those of the tensors this rank holds, so every number is
 per rank, as ``hlo_parse``'s are per device.
@@ -214,9 +217,13 @@ def crosses_pod(ranks, pod_size: int) -> bool:
 class OpCounter(TorchDispatchMode):
     """Counts every op dispatched while it is entered (``with
     OpCounter(...):``); ``counts()`` returns ``hlo_parse.analyze_text``'s
-    keys plus ``dot_flops``, ``kernels``, ``n_ops`` and ``peak_bytes``."""
+    keys plus ``dot_flops``, ``kernels``, ``n_ops`` and ``peak_bytes``,
+    and with ``live_at_peak`` also ``live_at_peak``: the (bytes, (op,
+    shape, dtype, phase)) of each storage live when ``peak_bytes`` was
+    first reached."""
 
-    def __init__(self, pod_size: int = 10 ** 9, entry: str = ''):
+    def __init__(self, pod_size: int = 10 ** 9, entry: str = '',
+                 live_at_peak: bool = False):
         super().__init__()
         self.pod_size, self.entry = pod_size, entry
         self.flops = self.dot_flops = self.bytes = 0
@@ -226,6 +233,12 @@ class OpCounter(TorchDispatchMode):
         self.live = self.peak = 0
         self._storages: dict = {}
         self._launched: dict = {}
+        # with live_at_peak: each live storage's (birth, label), the birth
+        # of the storage that last raised the peak, and the storages live
+        # then that have been freed since
+        self._born: dict | None = {} if live_at_peak else None
+        self._clock = self._peak_clock = 0
+        self._freed_at_peak: list = []
 
     def __enter__(self):
         self._launched = dict(kernels.LAUNCHES)
@@ -263,7 +276,7 @@ class OpCounter(TorchDispatchMode):
             res = _tensors(out)
             if res:
                 self.flops += res[0].numel()
-        self._track(out, args, kwargs)
+        self._track(name, out, args, kwargs)
         return out
 
     def _collective(self, name: str, args: tuple) -> None:
@@ -287,7 +300,7 @@ class OpCounter(TorchDispatchMode):
         self._add_collective(key, sum(_nbytes(t) for t in _tensors(out)),
                              _functional_group_ranks(args))
 
-    def _track(self, out, args, kwargs) -> None:
+    def _track(self, name: str, out, args, kwargs) -> None:
         """Add the storages that ``out`` made (not those of its inputs:
         views, in-place results) to the live bytes; each leaves when it
         is freed."""
@@ -303,27 +316,68 @@ class OpCounter(TorchDispatchMode):
             n = st.nbytes()
             self._storages[key] = n
             self.live += n
+            if self._born is not None:
+                self._clock += 1
+                phase = ('backward' if torch._C._current_graph_task_id() != -1
+                         else 'forward')
+                self._born[key] = (self._clock, (name, tuple(t.shape),
+                                                 str(t.dtype), phase))
+                if self.live > self.peak:
+                    self._peak_clock, self._freed_at_peak = self._clock, []
             self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key)
 
     def _free(self, key) -> None:
-        self.live -= self._storages.pop(key, 0)
+        n = self._storages.pop(key, 0)
+        self.live -= n
+        if self._born is not None and key in self._born:
+            born, label = self._born.pop(key)
+            if born <= self._peak_clock:
+                self._freed_at_peak.append((n, label))
 
     def counts(self) -> dict:
-        return {'flops': self.flops, 'bytes': self.bytes,
-                'collective_bytes': self.coll_bytes,
-                'collective_bytes_crosspod': self.coll_bytes_crosspod,
-                'collective_counts': dict(self.coll_counts),
-                'entry': self.entry, 'dot_flops': self.dot_flops,
-                'kernels': dict(self._launched), 'n_ops': self.n_ops,
-                'peak_bytes': self.peak}
+        out = {'flops': self.flops, 'bytes': self.bytes,
+               'collective_bytes': self.coll_bytes,
+               'collective_bytes_crosspod': self.coll_bytes_crosspod,
+               'collective_counts': dict(self.coll_counts),
+               'entry': self.entry, 'dot_flops': self.dot_flops,
+               'kernels': dict(self._launched), 'n_ops': self.n_ops,
+               'peak_bytes': self.peak}
+        if self._born is not None:
+            out['live_at_peak'] = self._freed_at_peak + [
+                (self._storages[k], label)
+                for k, (born, label) in self._born.items()
+                if born <= self._peak_clock]
+        return out
 
 
-def analyze(fn, *args, pod_size: int = 10 ** 9, **kwargs) -> dict:
+def analyze(fn, *args, pod_size: int = 10 ** 9, live_at_peak: bool = False,
+            **kwargs) -> dict:
     """The counts of one call ``fn(*args, **kwargs)`` (``hlo_parse.
     analyze_text``'s keys, ``entry`` the function's qualified name, plus
-    ``dot_flops``, ``kernels``, ``n_ops`` and ``peak_bytes``)."""
-    counter = OpCounter(pod_size, getattr(fn, '__qualname__', repr(fn)))
+    ``dot_flops``, ``kernels``, ``n_ops`` and ``peak_bytes``, and
+    ``live_at_peak`` where asked)."""
+    counter = OpCounter(pod_size, getattr(fn, '__qualname__', repr(fn)),
+                        live_at_peak)
     with counter:
         fn(*args, **kwargs)
     return counter.counts()
+
+
+def saved_bytes(fn, *args, inputs=()) -> tuple:
+    """(the bytes of the storages that autograd saves for the backward
+    during ``fn(*args)``, each storage once, as ``saved_tensors_hooks``
+    sees them, less those of ``inputs``, which the caller holds anyway;
+    ``fn``'s result)."""
+    held = {x.untyped_storage().data_ptr() for x in inputs}
+    seen = {}
+
+    def pack(x):
+        st = x.untyped_storage()
+        if st.data_ptr() not in held:
+            seen[st.data_ptr()] = st.nbytes()
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = fn(*args)
+    return sum(seen.values()), out

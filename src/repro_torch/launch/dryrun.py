@@ -19,7 +19,11 @@ records:
     total for the same call, a check on the counter's matmul FLOPs;
   * the op counter's per-rank FLOPs, HBM bytes and collective bytes
     (``analysis.op_count``) and the three-term roofline on an H100
-    (``analysis.roofline``).
+    (``analysis.roofline``);
+  * with ``live_at_peak`` (``--live-at-peak N`` prints the N largest),
+    what is live at that peak: the storages grouped by the op that made
+    them, shape, dtype and phase (``forward``, or ``backward``, where
+    remat's recomputation runs), largest total first.
 
 Every LM cell (smollm-360m, yi-34b, command-r-35b, nemotron-4-15b,
 chameleon-34b; granite-moe-1b-a400m and llama4-maverick-400b-a17b under
@@ -224,7 +228,8 @@ def stem_of(arch: str, shape_name: str, mesh_kind: str, opt: str = '') -> str:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
-             opt: str = '', out_dir: Path = OUT_DIR) -> dict:
+             opt: str = '', out_dir: Path = OUT_DIR,
+             live_at_peak: bool = False) -> dict:
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
     chips = MESH_RANKS[mesh_kind]
@@ -238,7 +243,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             fn, args, mf = build_lm_cell(arch, shape_name, mesh, opt)
         arg_bytes = _tensor_bytes(args)
         flop_mode = FlopCounterMode(display=False)
-        counter = op_count.OpCounter(rl.POD_SIZE, f'{arch}/{shape_name}')
+        counter = op_count.OpCounter(rl.POD_SIZE, f'{arch}/{shape_name}',
+                                     live_at_peak)
         t0 = time.time()
         # the counter enters last, so it sees each op before
         # FlopCounterMode may decompose it
@@ -266,11 +272,26 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         'roofline': roof.row(),
         'n_ops': counts['n_ops'],
     }
+    if live_at_peak:
+        rec['live_at_peak'] = group_live(counts['live_at_peak'])
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / f'{stem_of(arch, shape_name, mesh_kind, opt)}.json',
               'w') as f:
         json.dump(rec, f, indent=1, default=str)
     return rec
+
+
+def group_live(live: list) -> list:
+    """The op counter's ``live_at_peak`` storages grouped by (op, shape,
+    dtype, phase), largest total first."""
+    groups: dict = {}
+    for n, label in live:
+        g = groups.setdefault(label, [0, 0])
+        g[0] += n
+        g[1] += 1
+    return [{'op': k[0], 'shape': list(k[1]), 'dtype': k[2], 'phase': k[3],
+             'bytes': n, 'count': c}
+            for k, (n, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])]
 
 
 def _slug(s: str) -> str:
@@ -368,6 +389,9 @@ def main() -> None:
     ap.add_argument('--timeout', type=int, default=7200)
     ap.add_argument('--table', action='store_true',
                     help='print the collected roofline table and exit')
+    ap.add_argument('--live-at-peak', type=int, default=0, metavar='N',
+                    help="print the N largest groups of what is live at "
+                         "the cell's peak")
     args = ap.parse_args()
 
     if args.table:
@@ -379,7 +403,8 @@ def main() -> None:
         return
     if not (args.arch and args.shape):
         ap.error('--arch and --shape, or --all, are required')
-    rec = run_cell(args.arch, args.shape, args.mesh, opt=args.opt)
+    rec = run_cell(args.arch, args.shape, args.mesh, opt=args.opt,
+                   live_at_peak=args.live_at_peak > 0)
     print(json.dumps({k: rec[k] for k in
                       ('arch', 'shape', 'mesh', 'count_s', 'n_ops')},
                      indent=1))
@@ -391,6 +416,16 @@ def main() -> None:
           f"collective={rl.fmt_seconds(r['t_collective_s'])} "
           f"bound={r['bottleneck']} useful={r['useful_ratio']:.2f} "
           f"roofline%={100 * r['roofline_fraction']:.1f} ({r['note']})")
+    if args.live_at_peak:
+        live = rec['live_at_peak']
+        total = sum(g['bytes'] for g in live)
+        print(f"live at the peak: {total / 1e9:.3f} GB in "
+              f"{sum(g['count'] for g in live)} storages; largest groups "
+              '(op, shape, dtype, phase):')
+        for g in live[:args.live_at_peak]:
+            print(f"  {g['bytes'] / 1e9:8.3f} GB "
+                  f"{100 * g['bytes'] / total:5.1f} %  x{g['count']:<5} "
+                  f"{g['op']} {g['shape']} {g['dtype']} {g['phase']}")
 
 
 if __name__ == '__main__':

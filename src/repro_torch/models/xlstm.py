@@ -163,20 +163,51 @@ def _slstm_recur(pre_t, h, c, w32, n_heads: int, hd: int):
     return h, c
 
 
+def slstm_chunk(s: int) -> int:
+    """The steps of one chunk of the sLSTM walk over ``s`` steps: the
+    largest divisor of ``s`` that is at most 256 (the JAX package's
+    ``w``)."""
+    w = 256
+    while s % w:
+        w -= 1
+    return w
+
+
+def _slstm_walk(pre, h, c, w32, n_heads: int):
+    """One chunk of the walk: pre [B, w, 4 di] converted to float32 once,
+    its w steps from the carries h and c [B, di] float32.  Returns (the
+    h of every step [B, w, di] in pre's dtype, h, c).  The steps take
+    their rows by ``unbind``, whose backward stacks the w gradients once
+    (a ``select`` a step would write each into a zeroed copy of the
+    whole chunk)."""
+    hd = h.shape[-1] // n_heads
+    hs = []
+    for pre_t in pre.float().unbind(1):
+        h, c = _slstm_recur(pre_t, h, c, w32, n_heads, hd)
+        hs.append(h.to(pre.dtype))
+    return torch.stack(hs, dim=1), h, c
+
+
 def _slstm_scan(pre_x, w_h_blocks, n_heads: int):
     """The recurrence over time from zeroed h and c: pre_x [B, S, 4 di]
-    -> the h of every step [B, S, di] in pre_x's dtype, float32 inside."""
+    -> the h of every step [B, S, di] in pre_x's dtype, float32 inside.
+
+    As in the JAX package, time is walked in chunks of ``slstm_chunk(S)``
+    steps with (h, c) carried between them in float32; while grad is
+    enabled each chunk is recomputed in the backward pass (``L.remat``),
+    so the backward keeps the carries and the chunk inputs, not every
+    step's float32 intermediates.  The chunks are taken by ``split``, as
+    the steps by ``unbind``: the backward then joins their gradients once
+    instead of adding a zeroed copy of ``pre_x`` a chunk."""
     b, s, di4 = pre_x.shape
-    di = di4 // 4
     w32 = w_h_blocks.float()
-    h = torch.zeros((b, di), dtype=torch.float32, device=pre_x.device)
+    h = torch.zeros((b, di4 // 4), dtype=torch.float32, device=pre_x.device)
     c = torch.zeros_like(h)
     hs = []
-    for t in range(s):
-        h, c = _slstm_recur(pre_x[:, t].float(), h, c, w32, n_heads,
-                            di // n_heads)
-        hs.append(h.to(pre_x.dtype))
-    return torch.stack(hs, dim=1)
+    for chunk in pre_x.split(slstm_chunk(s), dim=1):
+        y, h, c = L.remat(True, _slstm_walk, chunk, h, c, w32, n_heads)
+        hs.append(y)
+    return torch.cat(hs, dim=1)
 
 
 def slstm_block(p, x, cfg, ctx: ShardCtx = L.NO_CTX):

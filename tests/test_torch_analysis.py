@@ -246,6 +246,30 @@ def test_peak_bytes_follows_frees():
     assert got['flops'] == 13 * 1000
 
 
+def test_live_at_peak_lists_the_peak_storages():
+    """``live_at_peak`` lists what was live when the peak was first
+    reached, freed since or not, and nothing made after it."""
+    def churn(x):
+        a = x * 2.0                      # 4,000 B
+        b = torch.cat([a, a])            # 8,000 B: the peak, 12,000 B
+        del a, b
+        c = x + 1.0                      # made after the peak
+        return c, x.new_zeros(3)
+
+    got = op_count.analyze(churn, torch.ones(1000), live_at_peak=True)
+    assert got['peak_bytes'] == 12000
+    assert sorted(got['live_at_peak']) == [
+        (4000, ('mul', (1000,), 'torch.float32', 'forward')),
+        (8000, ('cat', (2000,), 'torch.float32', 'forward'))]
+    # a backward's storages carry its phase
+    w = torch.ones(1000, requires_grad=True)
+    got = op_count.analyze(
+        lambda: torch.autograd.grad((w * w).sum(), [w]), live_at_peak=True)
+    assert {label[3] for _, label in got['live_at_peak']} == {
+        'forward', 'backward'}
+    assert 'live_at_peak' not in op_count.analyze(churn, torch.ones(10))
+
+
 def test_kernel_launches_listed_at_zero_cost(monkeypatch):
     monkeypatch.setitem(kernels.LAUNCHES, 'rasterize', 7)
 
