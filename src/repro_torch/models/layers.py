@@ -393,6 +393,41 @@ def _bf16_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.bfloat16().float(), b.bfloat16().float())
 
 
+def _kv_step(q32, qpos, m, l, acc, k_c, v_c, k_start: int, causal: bool):
+    """One kv block of ``flash_attention`` from the carries (m, l, acc):
+    the block's scores, its lazy-softmax update and its PV product."""
+    sc = _bf16_dot('bqhd,bkhd->bqhk', q32, k_c)
+    if causal:
+        kpos = k_start + torch.arange(k_c.shape[1], device=q32.device)
+        mask = kpos[None, :] > qpos[:, None]                    # [qc, kc]
+        sc = torch.where(mask[None, :, None, :], NEG_INF, sc)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    p = torch.exp(sc - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + _bf16_dot('bqhk,bkhd->bqhd', p, v_c)
+    return m_new, l, acc
+
+
+def _q_step(q_c, k, v, q_start: int, kc: int, scale: float, causal: bool):
+    """One q block of ``flash_attention``: its walk over the kv blocks,
+    each kv block under ``remat`` while there are several."""
+    b, qc, h, hd = q_c.shape
+    nk = k.shape[1] // kc
+    dev = q_c.device
+    q32 = q_c.float() * scale
+    qpos = q_start + torch.arange(qc, device=dev)
+    m = torch.full((b, qc, h), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, qc, h), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, qc, h, hd), dtype=torch.float32, device=dev)
+    for kj in range(nk):
+        m, l, acc = remat(nk > 1, _kv_step, q32, qpos, m, l, acc,
+                          k[:, kj * kc:(kj + 1) * kc],
+                          v[:, kj * kc:(kj + 1) * kc], kj * kc, causal)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q_c.dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool, q_offset=0,
                     q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """Memory-streamed attention (lazy softmax over KV chunks).
@@ -402,40 +437,30 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     position of q[0].  As in the JAX package, Q x scale and K are rounded to
     bfloat16 for QK, and P and V for PV, with float32 sums, whatever the
     input dtype; the chunk sizes shrink until they divide the lengths.
+
+    While grad is enabled each q block, and inside it each kv block, runs
+    under ``remat`` (the JAX package's nested ``jax.checkpoint``): the
+    backward keeps each q block's input and, while one q block is
+    recomputed, its kv blocks' carries (m, l, acc), and recomputes every
+    score and probability block instead of keeping it.  A loop of one
+    block runs plain: checkpointed, it would differ in its saved bytes
+    by that one block's intermediates at most, which its backward
+    recomputes at once, for one more forward.  The recompute replays the
+    same operations on the same inputs, so the values and the gradients
+    are those of the plain loops.
     """
-    b, s, h, hd = q.shape
-    t = k.shape[1]
+    s, t = q.shape[1], k.shape[1]
     qc = min(q_chunk, s)
     while s % qc:
         qc -= 1
     kc = min(kv_chunk, t)
     while t % kc:
         kc -= 1
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-    outs = []
-    for qi in range(s // qc):
-        q32 = q[:, qi * qc:(qi + 1) * qc].float() * scale
-        qpos = qi * qc + torch.arange(qc, device=dev) + q_offset
-        m = torch.full((b, qc, h), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, qc, h), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, qc, h, hd), dtype=torch.float32, device=dev)
-        for kj in range(t // kc):
-            k_c = k[:, kj * kc:(kj + 1) * kc]
-            v_c = v[:, kj * kc:(kj + 1) * kc]
-            sc = _bf16_dot('bqhd,bkhd->bqhk', q32, k_c)
-            if causal:
-                kpos = kj * kc + torch.arange(kc, device=dev)
-                mask = kpos[None, :] > qpos[:, None]            # [qc, kc]
-                sc = torch.where(mask[None, :, None, :], NEG_INF, sc)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            p = torch.exp(sc - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + _bf16_dot('bqhk,bkhd->bqhd', p, v_c)
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(q.dtype))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    nq = s // qc
+    outs = [remat(nq > 1, _q_step, q[:, qi * qc:(qi + 1) * qc], k, v,
+                  qi * qc + q_offset, kc, scale, causal)
+            for qi in range(nq)]
     return torch.cat(outs, dim=1)
 
 

@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..runtime.sharding import reduce_partials
-from .layers import NEG_INF
+from .layers import NEG_INF, remat
 
 
 def _with_ones(v: torch.Tensor) -> torch.Tensor:
@@ -48,6 +48,28 @@ def _normalized(y: torch.Tensor, dv: int) -> torch.Tensor:
     return out / torch.clamp(n_q.abs(), min=1.0)[..., None]
 
 
+def _chunk_step(state, q, k, v, log_a, tri):
+    """One chunk of ``chunked_linear_attention``: q, k [B, w, H, dk], v
+    [B, w, H, dv(+1)] and log_a [B, w, H] in their own dtypes, the carried
+    state [B, H, dk, dv(+1)] float32.  Returns (y [B, w, H, dv(+1)]
+    float32, the next state)."""
+    qc, kc, vc = q.float(), k.float(), v.float()
+    f = torch.cumsum(log_a.float(), dim=1)                      # [B,w,H]
+    f_tot = f[:, -1]                                            # [B,H]
+    qk = torch.einsum('bthd,bshd->bhts', qc, kc)                # [B,H,w,w]
+    fh = f.permute(0, 2, 1)                                     # [B,H,w]
+    decay = fh[:, :, :, None] - fh[:, :, None, :]               # [B,H,t,s]
+    # mask before exp: the upper triangle's exponents are positive
+    gate = torch.exp(torch.where(tri, decay, NEG_INF))
+    intra = torch.einsum('bhts,bshv->bthv', qk * gate, vc)
+    qs = qc * torch.exp(f)[..., None]
+    inter = torch.einsum('bthd,bhdv->bthv', qs, state)
+    y = intra + inter
+    kd = kc * torch.exp(f_tot[:, None] - f)[..., None]
+    outer = torch.einsum('bshd,bshv->bhdv', kd, vc)
+    return y, state * torch.exp(f_tot)[..., None, None] + outer
+
+
 def chunked_linear_attention(q, k, v, log_a, *, chunk: int = 512,
                              normalize: bool = False, state_in=None):
     """q, k: [B, S, H, dk]; v: [B, S, H, dv]; log_a: [B, S, H] (<= 0).
@@ -57,6 +79,16 @@ def chunked_linear_attention(q, k, v, log_a, *, chunk: int = 512,
     (``_chunked_on_blocks``) returns (y, None): no caller reads the final
     state on a mesh, and with ``normalize`` a dv-split state would carry
     one normalizer column a rank.
+
+    While grad is enabled each chunk runs under ``layers.remat`` (the
+    JAX package's ``lax.scan(jax.checkpoint(step))``): the backward keeps
+    the carried state a chunk and the chunks' inputs, and recomputes
+    each chunk's float32 copies, scores, gates and products.  One chunk
+    runs plain: checkpointed, it would differ in its saved bytes by that
+    chunk's intermediates at most, which its backward recomputes at once,
+    for one more forward.  The recompute replays the same operations on
+    the same inputs, so the values and the gradients are those of the
+    plain loop.
     """
     if hasattr(q, 'placements'):
         return _chunked_on_blocks(q, k, v, log_a, chunk, normalize), None
@@ -67,26 +99,15 @@ def chunked_linear_attention(q, k, v, log_a, *, chunk: int = 512,
     w = min(chunk, s)
     while s % w:
         w -= 1
+    nc = s // w
     state = state_in if state_in is not None else torch.zeros(
         (b, h, dk, v.shape[-1]), dtype=torch.float32, device=q.device)
     tri = torch.tril(torch.ones((w, w), dtype=torch.bool, device=q.device))
     ys = []
-    for c in range(s // w):
-        qc, kc, vc = (x[:, c * w:(c + 1) * w].float() for x in (q, k, v))
-        f = torch.cumsum(log_a[:, c * w:(c + 1) * w].float(), dim=1)  # [B,w,H]
-        f_tot = f[:, -1]                                              # [B,H]
-        qk = torch.einsum('bthd,bshd->bhts', qc, kc)                  # [B,H,w,w]
-        fh = f.permute(0, 2, 1)                                       # [B,H,w]
-        decay = fh[:, :, :, None] - fh[:, :, None, :]                 # [B,H,t,s]
-        # mask before exp: the upper triangle's exponents are positive
-        gate = torch.exp(torch.where(tri, decay, NEG_INF))
-        intra = torch.einsum('bhts,bshv->bthv', qk * gate, vc)
-        qs = qc * torch.exp(f)[..., None]
-        inter = torch.einsum('bthd,bhdv->bthv', qs, state)
-        ys.append(intra + inter)
-        kd = kc * torch.exp(f_tot[:, None] - f)[..., None]
-        outer = torch.einsum('bshd,bshv->bhdv', kd, vc)
-        state = state * torch.exp(f_tot)[..., None, None] + outer
+    for c in range(nc):
+        chunk_in = (x[:, c * w:(c + 1) * w] for x in (q, k, v, log_a))
+        y_c, state = remat(nc > 1, _chunk_step, state, *chunk_in, tri)
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)
     if normalize:
         y = _normalized(y, dv)

@@ -194,18 +194,22 @@ def _slstm_scan(pre_x, w_h_blocks, n_heads: int):
 
     As in the JAX package, time is walked in chunks of ``slstm_chunk(S)``
     steps with (h, c) carried between them in float32; while grad is
-    enabled each chunk is recomputed in the backward pass (``L.remat``),
-    so the backward keeps the carries and the chunk inputs, not every
-    step's float32 intermediates.  The chunks are taken by ``split``, as
-    the steps by ``unbind``: the backward then joins their gradients once
-    instead of adding a zeroed copy of ``pre_x`` a chunk."""
+    enabled and there are several chunks, each is recomputed in the
+    backward pass (``L.remat``), so the backward keeps the carries and
+    the chunk inputs, not every step's float32 intermediates.  One chunk
+    runs plain, as ``flash_attention``'s and ``chunked_linear_attention``'s
+    loops of one block do: its checkpoint would save no peak and cost a
+    third forward.  The chunks are taken by ``split``, as the steps by
+    ``unbind``: the backward then joins their gradients once instead of
+    adding a zeroed copy of ``pre_x`` a chunk."""
     b, s, di4 = pre_x.shape
+    w = slstm_chunk(s)
     w32 = w_h_blocks.float()
     h = torch.zeros((b, di4 // 4), dtype=torch.float32, device=pre_x.device)
     c = torch.zeros_like(h)
     hs = []
-    for chunk in pre_x.split(slstm_chunk(s), dim=1):
-        y, h, c = L.remat(True, _slstm_walk, chunk, h, c, w32, n_heads)
+    for chunk in pre_x.split(w, dim=1):
+        y, h, c = L.remat(s > w, _slstm_walk, chunk, h, c, w32, n_heads)
         hs.append(y)
     return torch.cat(hs, dim=1)
 

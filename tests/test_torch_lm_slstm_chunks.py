@@ -17,7 +17,9 @@ carries between chunks.  The port walks the same chunks under
       float32 intermediates plus the carries (fails where no checkpoint
       is in effect);
   (d) under ``torch.no_grad()`` nothing is checkpointed, and the values
-      are those of the forward with grad on.
+      are those of the forward with grad on; with grad on each chunk is
+      checkpointed where there are several, and a walk of one chunk runs
+      plain, as the other chunk loops of the port do.
 """
 import jax
 import jax.numpy as jnp
@@ -168,8 +170,9 @@ def test_walk_saves_at_most_one_chunk(slstm):
 
 @pytest.mark.parametrize('s,w', LENGTHS)
 def test_no_grad_checkpoints_nothing(slstm, s, w, monkeypatch):
-    """(d) ``layers.remat`` checkpoints each chunk while grad is on, and
-    nothing under ``torch.no_grad()``."""
+    """(d) ``layers.remat`` checkpoints each chunk while grad is on and
+    there are several (none at S = 9, one chunk), and nothing under
+    ``torch.no_grad()``."""
     _, cfg, p = slstm
     x, _ = _inputs(cfg, s)
     tp = _port_params(p)
@@ -185,5 +188,5 @@ def test_no_grad_checkpoints_nothing(slstm, s, w, monkeypatch):
         y_ng = txlstm.slstm_block(tp, t(x), cfg)
     assert calls == []
     y = txlstm.slstm_block(tp, t(x), cfg)
-    assert calls == ['_slstm_walk'] * (s // w)
+    assert calls == (['_slstm_walk'] * (s // w) if s > w else [])
     assert torch.equal(y, y_ng)
