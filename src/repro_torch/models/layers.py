@@ -53,7 +53,13 @@ into a DTensor op, the layout is explicit:
   * the unembedding is laid out with its vocab over ``model`` (``ctx.dv``)
     before the logits' matmul, as GSPMD would carry ``btv`` back into it;
   * ``rmsnorm`` over a sharded last axis (an mLSTM's dv) reduces the sum
-    of squares across ranks before the division;
+    of squares across ranks before the division, its weight laid out as
+    that axis;
+  * an operand gathered whole for several products (``gathered``, or
+    ``project``'s own gather with ``regather``: xlstm's mLSTM block) is
+    saved for their backward as the rank's block, which the backward
+    gathers again once for all of them (``Regather``), in place of the
+    gathered whole;
   * ``project_heads`` projects into heads with head_dim over ``model``
     (the ``btdv`` layout), the weight's [D, H, hd] view sliced on each
     rank, where a contiguous column split would cut heads;
@@ -75,7 +81,7 @@ into a DTensor op, the layout is explicit:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -108,7 +114,9 @@ def remat(on: bool, fn, *args):
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm: statistics in float32, the scale applied in the input dtype
-    (``x * (rsqrt(var + eps) * w).to(x.dtype)``)."""
+    (``x * (rsqrt(var + eps) * w).to(x.dtype)``).  Over a DTensor's
+    sharded last axis, the mean square is reduced across ranks and ``w``
+    is laid out as that axis."""
     x32 = x.float()
     if any(p.is_shard(x.ndim - 1) for p in getattr(x, 'placements', ())):
         # over a sharded last axis (an mLSTM's dv) the sum of squares is a
@@ -116,6 +124,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
         # would leave a pending average, whose backward DTensor lacks)
         var = reduce_partials(torch.sum(x32 * x32, dim=-1, keepdim=True)
                               ) / x.shape[-1]
+        # the weight laid out as that axis (a slice, nothing is sent): the
+        # scale that the product saves is then the rank's block, not whole
+        pl = axis_placements(x, -1)
+        if tuple(pl) != tuple(w.placements):
+            w = w.redistribute(w.device_mesh, pl)
     else:
         var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     scale = torch.rsqrt(var + eps)
@@ -188,7 +201,108 @@ def _mask_heads(out: torch.Tensor, n_heads: int) -> torch.Tensor:
     return out * as_dtensor_like(mask, out)[None, None, :, None]
 
 
-def project(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
+class Regather:
+    """The backward's gather of a DTensor's block whole again, in the
+    layout ``placements`` that its forward gathered it to, for the ops that
+    saved the block in place of the gathered value (``Gathered``): made
+    once, at the first of their backwards, and kept until the last of them
+    (``users``, one a forward) has taken it.  It holds no tensor of the
+    forward."""
+
+    def __init__(self, block, placements):
+        self.src = (block.device_mesh, tuple(block.placements), block.shape,
+                    block.stride())
+        self.placements = tuple(placements)
+        self.users, self.value = 0, None
+
+    def __call__(self, local: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if self.value is None:
+            mesh, pl, shape, stride = self.src
+            self.value = DTensor.from_local(
+                local, mesh, pl, run_check=False, shape=shape,
+                stride=stride).redistribute(mesh, self.placements).to_local()
+        value = self.value
+        self.users -= 1
+        if self.users <= 0:
+            self.value = None
+        return value
+
+
+class Gathered(NamedTuple):
+    """A DTensor gathered once for the ops after it (``gathered``):
+    ``whole`` feeds them; while grad is on each saves for its backward
+    not ``whole`` but ``block`` (the value before the gather: this rank's
+    block) and gathers it again through ``regather``."""
+    whole: torch.Tensor
+    block: torch.Tensor
+    regather: Regather
+
+
+def gathered(x: torch.Tensor, dims):
+    """``unshard_dims(x, dims)`` as a ``Gathered``, for ``project`` and
+    ``project_heads``; a plain tensor, or one with nothing to gather,
+    passes unchanged."""
+    whole = unshard_dims(x, dims)
+    if whole is x:
+        return x
+    return Gathered(whole, x, Regather(x, whole.placements))
+
+
+class _MatmulFromBlock(torch.autograd.Function):
+    """``x @ w`` (x [..., K] whole, w [K, N]) that saves, in place of x,
+    ``block`` (x's block before its gather) and gathers x again in the
+    backward (``regather``).  The product and the gradients are
+    ``torch.matmul``'s and autograd's own: x folded to [-1, K] and one
+    ``mm``; each gradient the ``mm`` of ``mm_mat1_backward`` and
+    ``mm_mat2_backward``, so no bit changes."""
+
+    @staticmethod
+    def forward(ctx, x, w, block, regather):
+        regather.users += 1
+        ctx.regather = regather
+        ctx.save_for_backward(block, w)
+        return x.reshape(-1, x.shape[-1]).mm(w).view(*x.shape[:-1],
+                                                      w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        block, w = ctx.saved_tensors
+        x = ctx.regather(block)
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = grad.reshape(-1, grad.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = g2.mm(w.t()).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            col_major = w.stride(0) == 1 and w.stride(1) == w.shape[0]
+            gw = g2.t().mm(x2).t() if col_major else x2.t().mm(g2)
+        return gx, gw, None, None
+
+
+def _on_blocks(fn, x, w, out_pl, in_pl, dx_pl, dw_pl, mesh):
+    """``local_map`` of ``fn(x, w, mm)`` on the rank's blocks, ``mm`` its
+    matmul: ``torch.matmul``, or for a ``Gathered`` x while grad is on one
+    that saves x's block (``_MatmulFromBlock``)."""
+    from torch.distributed.tensor.experimental import local_map
+    kw = dict(out_placements=out_pl, device_mesh=mesh)
+    if not (isinstance(x, Gathered) and torch.is_grad_enabled()):
+        whole = x.whole if isinstance(x, Gathered) else x
+        return local_map(lambda x, w: fn(x, w, torch.matmul),
+                         in_placements=(in_pl, list(w.placements)),
+                         in_grad_placements=(dx_pl, dw_pl), **kw)(whole, w)
+    g, bl = x, list(x.block.placements)
+
+    def run(x, w, block):
+        return fn(x, w, lambda a, b: _MatmulFromBlock.apply(a, b, block,
+                                                            g.regather))
+
+    return local_map(run, in_placements=(in_pl, list(w.placements), bl),
+                     in_grad_placements=(dx_pl, dw_pl, bl),
+                     **kw)(g.whole, w, g.block)
+
+
+def project(x, *ws: torch.Tensor, regather: bool = False) -> tuple:
     """``x @ w`` for each weight ``w`` [D, F]: the projections out of the
     residual stream.  On DTensors each runs on the rank's blocks
     (``local_map``) with the layout said here, because DTensor's own
@@ -198,11 +312,16 @@ def project(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
     with that dimension gathered (sequence parallelism's all-gather) and
     gives columns sharded; else the result keeps ``x``'s shard.  The
     gradients are declared to match: a pending sum for ``x`` where the
-    columns were split, for ``w`` where ``x`` was."""
+    columns were split, for ``w`` where ``x`` was.  ``x`` may be a
+    ``Gathered``; with ``regather`` the gather that the layout makes is
+    one (the backward gathers x's block again, the gathered x is not
+    kept)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    src = x
+    if isinstance(x, Gathered):
+        x = x.whole
     if not isinstance(x, DTensor):
         return tuple(x @ w for w in ws)
-    from torch.distributed.tensor.experimental import local_map
     x = reduce_partials(unshard_dims(x, (-1,)))    # the contraction whole
     mesh, n, out, seen = x.device_mesh, x.device_mesh.ndim, [], {}
     for w in ws:
@@ -211,21 +330,24 @@ def project(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
         pl = tuple(Replicate() if tp[i] else p
                    for i, p in enumerate(x.placements))
         if pl not in seen:
-            seen[pl] = x.redistribute(mesh, pl) if pl != x.placements else x
-        xi = seen[pl]
+            if pl == x.placements:
+                seen[pl] = src if isinstance(src, Gathered) else x
+            elif regather:
+                seen[pl] = Gathered(x.redistribute(mesh, pl), x,
+                                    Regather(x, pl))
+            else:
+                seen[pl] = x.redistribute(mesh, pl)
         out_pl = [Shard(x.ndim - 1) if tp[i] else p
                   for i, p in enumerate(pl)]
         dx_pl = [Partial() if tp[i] else p for i, p in enumerate(pl)]
         dw_pl = [Partial() if p.is_shard() else w.placements[i]
                  for i, p in enumerate(pl)]
-        out.append(local_map(torch.matmul, out_placements=out_pl,
-                             in_placements=(list(pl), list(w.placements)),
-                             in_grad_placements=(dx_pl, dw_pl),
-                             device_mesh=mesh)(xi, w))
+        out.append(_on_blocks(lambda x, w, mm: mm(x, w), seen[pl], w,
+                              out_pl, list(pl), dx_pl, dw_pl, mesh))
     return tuple(out)
 
 
-def project_heads(x: torch.Tensor, w: torch.Tensor, n_heads: int,
+def project_heads(x, w: torch.Tensor, n_heads: int,
                   ctx: ShardCtx = NO_CTX) -> torch.Tensor:
     """``x @ w`` as ``n_heads`` heads [B, S, H, hd] of ``w``'s columns.
 
@@ -237,31 +359,32 @@ def project_heads(x: torch.Tensor, w: torch.Tensor, n_heads: int,
     contiguous block of columns would split the heads themselves when
     ``model`` does not divide H (xlstm's 4 heads on 16 ranks).  The
     gradients are declared: a pending sum for ``x`` where hd is split,
-    for ``w`` where ``x``'s rows are."""
+    for ``w`` where ``x``'s rows are.  ``x`` may be a ``Gathered``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    src = x
+    if isinstance(x, Gathered):
+        x = x.whole
     if not isinstance(x, DTensor):
         return (x @ w).reshape(*x.shape[:-1], n_heads, -1)
-    from torch.distributed.tensor.experimental import local_map
     x = reduce_partials(unshard_dims(x, (-1,)))
     w = reduce_partials(unshard_dims(w, (0, 1)))
     w = ctx.head_dim(w.view(w.shape[0], n_heads, w.shape[1] // n_heads))
     mesh, split = x.device_mesh, [p.is_shard(2) for p in w.placements]
     pl = [Replicate() if split[i] else p for i, p in enumerate(x.placements)]
+    out_pl = [Shard(x.ndim) if split[i] else p for i, p in enumerate(pl)]
     if tuple(pl) != tuple(x.placements):
         x = x.redistribute(mesh, pl)
-    out_pl = [Shard(x.ndim) if split[i] else p for i, p in enumerate(pl)]
+    elif isinstance(src, Gathered) and x is src.whole:
+        x = src
     dx_pl = [Partial() if split[i] else p for i, p in enumerate(pl)]
     dw_pl = [Partial() if p.is_shard() else w.placements[i]
              for i, p in enumerate(pl)]
 
-    def heads(x, w):
-        return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
-                                                       n_heads, -1)
+    def heads(x, w, mm):
+        return mm(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                        n_heads, -1)
 
-    return local_map(heads, out_placements=out_pl,
-                     in_placements=(pl, list(w.placements)),
-                     in_grad_placements=(dx_pl, dw_pl),
-                     device_mesh=mesh)(x, w)
+    return _on_blocks(heads, x, w, out_pl, pl, dx_pl, dw_pl, mesh)
 
 
 def on_rows(fn, xs: tuple, ws: tuple = (), n_out: int = 1):

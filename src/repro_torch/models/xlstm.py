@@ -92,30 +92,77 @@ def slstm_params(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
-def _mlstm_gates(k, gates):
-    """k [B, S, H, hd] times the bounded input gate, and the log forget
-    gate [B, S, H] (<= 0), of the gate pre-activations [B, S, 2H]."""
-    b, s, h, _ = k.shape
-    gates = gates.reshape(b, s, 2, h).float()
+def _mlstm_gates(gates, n_heads: int, dtype):
+    """The log forget gate [B, S, H] (<= 0) and the bounded input gate
+    [B, S, H, 1] in ``dtype``, of the gate pre-activations [B, S, 2H]."""
+    b, s, _ = gates.shape
+    gates = gates.reshape(b, s, 2, n_heads).float()
     log_f = F.logsigmoid(gates[:, :, 0])
     i_gate = torch.sigmoid(gates[:, :, 1])                # bounded input gate
-    return k * i_gate[..., None].to(k.dtype), log_f
+    return log_f, i_gate[..., None].to(dtype)
+
+
+class _ScaledGate(torch.autograd.Function):
+    """``k / scale * gate``, k [B, S, H, hd] and the gate [B, S, H, 1],
+    saving for the backward the unscaled k's ``block`` and the gate: the
+    backward recomputes ``k / scale`` (on DTensors from the block that
+    ``regather`` gathers whole again), where autograd would keep the
+    scaled k beside the gated one that the scan keeps.  The gradients are
+    autograd's for the two products: ``grad * gate / scale`` for k, and
+    ``grad * (k / scale)`` summed over hd for the gate."""
+
+    @staticmethod
+    def forward(ctx, k, gate, scale: float, block, regather):
+        if regather is not None:
+            regather.users += 1
+        ctx.scale, ctx.regather = scale, regather
+        ctx.save_for_backward(block, gate)
+        return k / scale * gate
+
+    @staticmethod
+    def backward(ctx, grad):
+        block, gate = ctx.saved_tensors
+        k = block if ctx.regather is None else ctx.regather(block)
+        gk = grad * gate / ctx.scale if ctx.needs_input_grad[0] else None
+        gg = ((grad * (k / ctx.scale)).sum(-1, keepdim=True)
+              if ctx.needs_input_grad[1] else None)
+        return gk, gg, None, None, None
+
+
+def _scaled_gate(k, gate, scale: float):
+    """``k / scale * gate`` (``_ScaledGate`` while grad is on).  ``k`` is
+    a plain tensor, or a ``layers.Gathered`` of its heads' hd: the product
+    then runs on each rank's rows (``local_map``) with k whole, as the
+    gate, and its backward gathers k's block again."""
+    if not torch.is_grad_enabled():
+        return (k.whole if isinstance(k, L.Gathered) else k) / scale * gate
+    if not isinstance(k, L.Gathered):
+        return _ScaledGate.apply(k, gate, scale, k, None)
+    from torch.distributed.tensor.experimental import local_map
+    pl, bl = list(gate.placements), list(k.block.placements)
+    return local_map(
+        lambda k_, g_, b_: _ScaledGate.apply(k_, g_, scale, b_, k.regather),
+        out_placements=pl, in_placements=(pl, pl, bl),
+        in_grad_placements=(pl, pl, bl), device_mesh=gate.device_mesh)(
+            k.whole, gate, k.block)
 
 
 def _mlstm_qkvg(p, x, cfg, ctx: ShardCtx = L.NO_CTX):
     b, s, _ = x.shape
     h = cfg.n_heads
     hd = _inner(cfg) // h
-    u, g = L.project(x, p['w_up'], p['w_gate'])
-    # whole once for the four projections that contract over di
-    u = unshard_dims(u, (1, 2))
+    # on DTensors x is gathered over the sequence for w_up and w_gate and
+    # u whole once for the four projections that contract over di; each
+    # product saves the rank's block and the backward gathers it again
+    u, g = L.project(x, p['w_up'], p['w_gate'], regather=True)
+    u = L.gathered(u, (1, 2))
     q = unshard_dims(L.project(u, p['wq'])[0], (2,)).reshape(b, s, h, hd)
-    k = unshard_dims(L.project_heads(u, p['wk'], h, ctx), (3,)) / math.sqrt(
-        hd)
+    k = L.gathered(L.project_heads(u, p['wk'], h, ctx), (3,))
     v = ctx.btdv(L.project_heads(u, p['wv'], h, ctx))
-    k, log_f = L.on_rows(_mlstm_gates, (k, L.project(u, p['w_if'])[0]),
-                         n_out=2)
-    return q, k, v, F.silu(g), log_f
+    log_f, i_gate = L.on_rows(
+        lambda gates: _mlstm_gates(gates, h, v.dtype),
+        (L.project(u, p['w_if'])[0],), n_out=2)
+    return q, _scaled_gate(k, i_gate, math.sqrt(hd)), v, F.silu(g), log_f
 
 
 def _mlstm_out(p, res, y, g, cfg, ctx: ShardCtx = L.NO_CTX):

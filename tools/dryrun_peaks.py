@@ -9,8 +9,8 @@ live_at_peak=True)`` of the ``repro_torch`` package under ``DIR``
 (default: this checkout's ``src``; a parent commit's ``src``, unpacked
 elsewhere, counts the parent) in a subprocess of its own, and prints one
 JSON line: the argument and peak bytes a rank, the FLOPs a rank,
-``useful_ratio``, the count's seconds, and the 20 largest groups of what
-is live at the peak (op, shape, dtype, phase, bytes, count).  With
+``useful_ratio``, the collective bytes a rank, the count's seconds, and
+the 20 largest groups of what is live at the peak (op, shape, dtype, phase, bytes, count).  With
 ``--jax`` it also compiles the cell with the JAX package's
 ``repro.launch.dryrun.run_cell`` in a subprocess (that module fixes 512
 host devices at import), its record written to a temporary directory,
@@ -46,6 +46,7 @@ from pathlib import Path
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(1)
+from repro_torch.analysis import roofline as rl
 from repro_torch.launch import dryrun
 arch, shape, mesh, opt = json.loads(sys.argv[2])
 with tempfile.TemporaryDirectory() as d:
@@ -57,7 +58,9 @@ print(json.dumps({
     'peak': rec['memory_analysis']['temp_size_in_bytes'],
     'flops': row['hlo_flops_total'] / rec['chips'],
     'matmul_flops': rec['cost_analysis']['flops'],
-    'useful_ratio': row['useful_ratio'], 'n_ops': rec['n_ops'],
+    'useful_ratio': row['useful_ratio'],
+    'collective_bytes': row['t_collective_s'] * rl.NVLINK_BYTES_PER_S,
+    'n_ops': rec['n_ops'],
     'count_s': rec['count_s'], 'live_at_peak': rec['live_at_peak'][:20],
     'live_total': sum(g['bytes'] for g in rec['live_at_peak'])}))
 '''
